@@ -1,0 +1,72 @@
+"""Carry state from ``rts_tpu`` (the JAX reference) into this package.
+
+Each function takes the JAX package's object and returns the port's, with
+every array leaf read through ``np.asarray`` and placed on ``device``.
+Nothing here imports jax: the leaves are array-likes that NumPy reads.
+The tests use these to feed identical state to both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from rts_tpu_torch.engine.animate import SceneBase
+from rts_tpu_torch.engine.cpi import CpiSpec, PulseBatch
+from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
+from rts_tpu_torch.physics import antenna, rcs
+from rts_tpu_torch.sim.paths import RotationPath
+
+
+def tensor(a, device="cpu", dtype=None):
+    """np.asarray(a) as a tensor on ``device`` (dtype kept unless given)."""
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def scene_base(jbase, device="cpu") -> SceneBase:
+    """rts_tpu.engine.animate.SceneBase (built with cluster_size=...)."""
+    if jbase.cl_mn is None:
+        raise ValueError("the JAX SceneBase has no cluster boxes: build it with cluster_size=")
+    return SceneBase(*(tensor(getattr(jbase, f), device) for f in SceneBase._fields))
+
+
+def rx_geom(jrx, device="cpu") -> RxGeomDevice:
+    return RxGeomDevice(*(tensor(getattr(jrx, f), device) for f in RxGeomDevice._fields))
+
+
+def pulse_batch(jbatch, device="cpu") -> PulseBatch:
+    """rts_tpu.engine.cpi.PulseBatch (its replay extras are not carried)."""
+    return PulseBatch(*(
+        rx_geom(jbatch.rx_geom, device) if f == "rx_geom" else tensor(getattr(jbatch, f), device)
+        for f in PulseBatch._fields
+    ))
+
+
+def trace_config(jcfg) -> TraceConfig:
+    return TraceConfig(**dataclasses.asdict(jcfg))
+
+
+def _model(obj, module):
+    """The port's model class of the same name, with the same fields."""
+    return getattr(module, type(obj).__name__)(**dataclasses.asdict(obj))
+
+
+def cpi_spec(jspec) -> CpiSpec:
+    """rts_tpu.engine.cpi.CpiSpec -> CpiSpec with the port's physics models
+    (same class names and parameters) and receiver rotation paths."""
+    kw = jspec.kwargs()
+    rot_fns = tuple(
+        RotationPath(**dataclasses.asdict(fn.__self__)).azel for fn in kw["rx_rotation_fns"]
+    )
+    return CpiSpec(
+        tx_span=tuple(kw["tx_span"]),
+        rcs_models=tuple(_model(m, rcs) for m in kw["rcs_models"]),
+        tx_gain=_model(kw["tx_gain"], antenna),
+        rx_gains=tuple(_model(g, antenna) for g in kw["rx_gains"]),
+        rx_rotation_fns=rot_fns,
+        carrier=kw["carrier"],
+        cspeed=kw["cspeed"],
+        num_rx=kw["num_rx"],
+    )

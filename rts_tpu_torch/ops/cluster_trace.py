@@ -1,0 +1,688 @@
+"""Clustered closest-hit traversal (counterpart of ``rts_tpu.ops.cluster_trace``).
+
+Triangles arrive Morton-clustered (``accel``) in the packed [16, T] field
+layout (rows n, c1, c0, e1, e0, np0; triangles on the last axis); rays
+arrive components-major ([3, L]) and are processed in tiles of
+``ray_tile``.  Two phases, as in the JAX package:
+
+  PHASE 1 (``_tile_candidates``, plain PyTorch, once per segment): per
+  ray tile, the near-to-far list of clusters that some ray of the tile
+  overlaps (exact per-ray slab tests, evaluated hierarchically), the
+  per-sub-block overlap bits, and an overflow flag for tiles that overlap
+  more clusters than the list holds.  Bit-identical to the JAX phase 1:
+  every ``jax.lax.top_k`` / ``jnp.argsort`` becomes a STABLE
+  ``torch.sort`` (ties toward the lower index, as ``top_k`` breaks them).
+
+  PHASE 2 (``mt_traverse``): per tile, Moller-Trumbore over the
+  candidate windows (K1), or the hierarchical sweep for overflowed tiles
+  (K2).  On a CUDA tensor it launches the hand-written kernel
+  ``csrc/mt_traverse.cu``; on a CPU tensor it runs the plain PyTorch
+  version ``mt_traverse_reference``.
+
+The TPU-only machinery of the JAX module (SMEM row packing and grid
+chunking, the f32-encoded tri ids of the packed I/O, the ``RTS_*``
+experiment switches) has no counterpart.  Options that only exist there
+raise (ROADMAP queue B).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from rts_tpu_torch.engine.intersect import RT_DEFAULT_MAX, HitResult
+
+_BIG = 3.0e38  # "no hit" running-best sentinel, as in the JAX kernel
+_INF = float("inf")
+
+# Phase-1 hierarchy defaults (the JAX module's constants; per call
+# overridable through TraceConfig.p1_*): level 1 tests rays against
+# supergroup boxes of _P1_FANOUT clusters and admits at most _P1_SUPER_K
+# of them per tile; level 0 (when the supergroup count reaches
+# _P1_L0_MIN_S) first tests runs of _P1_FANOUT0 supergroups and admits at
+# most _P1_SUPER_K0 runs per tile.  Tiles admitting more overflow to the
+# sweep.
+_P1_FANOUT = 16
+_P1_SUPER_K = 16
+_P1_FANOUT0 = 8
+_P1_SUPER_K0 = 12
+_P1_L0_MIN_S = 192
+
+
+def _top_k_indices(key, k: int):
+    """Indices of the k largest entries along the last axis, ties toward
+    the lower index (the order ``jax.lax.top_k`` returns)."""
+    return torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max,
+                     p1_fanout=None, p1_super_k=None, p1_fanout0=None, p1_super_k0=None):
+    """Phase 1: per-ray-tile candidate cluster lists.
+
+    Returns (cand [tiles, k_max] int32, meta [tiles, 2] int32,
+    bits [tiles, k_max] int32): meta[:, 0] is the candidate count and
+    meta[:, 1] is 1 when the tile overlaps more clusters than the list
+    holds (the traversal then sweeps the tile); bit b of ``bits`` is set
+    when ray sub-block b overlaps the candidate.  Candidates are sorted
+    near-to-far by entry distance; slots past the count repeat the last
+    valid candidate with bits 0.  ``rts_tpu.ops.cluster_trace.
+    _tile_candidates`` documents the design; this is the same
+    computation, operation for operation.
+    """
+    dev = origin.device
+    l = origin.shape[1]
+    c = mn.shape[0]
+    f32 = torch.float32
+    o = origin.to(f32)
+    d = direction.to(f32)
+    alive = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) > 0.0
+    big = _BIG
+    mnf = mn.to(f32)
+    mxf = mx.to(f32)
+    tiles = l // ray_tile
+    inv = 1.0 / torch.where(d == 0.0, 1.0, d)
+    tmin_f = tmin.to(f32)
+    arange = lambda n: torch.arange(n, dtype=torch.int32, device=dev)
+
+    def batch_slab(bmn, bmx):
+        """Exact per-ray slab vs a box set ([B, 3] shared, or [tiles, B, 3]
+        per tile): [l, B] or [tiles, rt, B] overlap and entry distance."""
+        if bmn.dim() == 2:
+            comp = lambda a, ax: a[ax]
+            al_, tm_ = alive, tmin_f
+            expand = lambda a: a[:, None]
+            bsel = lambda a, ax: a[None, :, ax]
+        else:
+            comp = lambda a, ax: a[ax].reshape(tiles, ray_tile)
+            al_ = alive.reshape(tiles, ray_tile)
+            tm_ = tmin_f.reshape(tiles, ray_tile)
+            expand = lambda a: a[..., None]
+            bsel = lambda a, ax: a[:, None, :, ax]
+        shape = al_.shape + (bmn.shape[-2],)
+        tn = torch.full(shape, -big, dtype=f32, device=dev)
+        tf = torch.full(shape, big, dtype=f32, device=dev)
+        for ax in range(3):
+            oa = expand(comp(o, ax))
+            ia = expand(comp(inv, ax))
+            t1 = (bsel(bmn, ax) - oa) * ia
+            t2 = (bsel(bmx, ax) - oa) * ia
+            lo = torch.minimum(t1, t2)
+            hi = torch.maximum(t1, t2)
+            inside = (oa >= bsel(bmn, ax)) & (oa <= bsel(bmx, ax))
+            dz = expand(comp(d, ax)) == 0.0
+            lo = torch.where(dz, torch.where(inside, -big, big), lo)
+            hi = torch.where(dz, torch.where(inside, big, -big), hi)
+            tn = torch.maximum(tn, lo)
+            tf = torch.minimum(tf, hi)
+        box_ok = (torch.isfinite(bmn) & torch.isfinite(bmx) & (bmn <= bmx)).all(-1)
+        ok = box_ok[None, :] if bmn.dim() == 2 else box_ok[:, None, :]
+        ov = (tf >= tn) & (tf >= expand(tm_)) & expand(al_) & ok
+        return ov, torch.where(ov, torch.maximum(tn, torch.zeros((), dtype=f32, device=dev)), _INF)
+
+    def pad_inf(a, rows):
+        if rows > a.shape[0]:
+            return torch.cat([a, torch.full((rows - a.shape[0], 3), _INF, dtype=a.dtype, device=dev)])
+        return a
+
+    def run_boxes(bmn, bmx, n_runs, fan):
+        """Bounding boxes of runs of ``fan`` boxes; all-sentinel runs get
+        the [+inf, +inf] sentinel."""
+        fin = torch.isfinite(bmn[:, 0:1]) & torch.isfinite(bmx[:, 0:1])
+        r_mn = torch.where(fin, bmn, big).reshape(n_runs, fan, 3).amin(1)
+        r_mx = torch.where(fin, bmx, -big).reshape(n_runs, fan, 3).amax(1)
+        bad = (r_mn[:, 0] > r_mx[:, 0])[:, None]
+        return torch.where(bad, _INF, r_mn), torch.where(bad, _INF, r_mx)
+
+    # --- level 1: supergroup boxes (runs of ``fanout`` clusters)
+    fanout = p1_fanout or _P1_FANOUT
+    s = -(-c // fanout)
+    c_pad1 = s * fanout
+    mnp, mxp = pad_inf(mnf, c_pad1), pad_inf(mxf, c_pad1)
+    s_mn, s_mx = run_boxes(mnp, mxp, s, fanout)
+
+    ks = min(p1_super_k or _P1_SUPER_K, s)
+    if s >= _P1_L0_MIN_S:
+        # --- level 0: runs of f0 supergroups tested dense, then only the
+        # member supergroups of each tile's admitted level-0 boxes
+        f0 = p1_fanout0 or _P1_FANOUT0
+        s0 = -(-s // f0)
+        s_pad0 = s0 * f0
+        smnp, smxp = pad_inf(s_mn, s_pad0), pad_inf(s_mx, s_pad0)
+        fin0 = torch.isfinite(smnp[:, 0:1])
+        z_mn = torch.where(fin0, smnp, big).reshape(s0, f0, 3).amin(1)
+        z_mx = torch.where(fin0, smxp, -big).reshape(s0, f0, 3).amax(1)
+        z_bad = (z_mn[:, 0] > z_mx[:, 0])[:, None]
+        z_mn = torch.where(z_bad, _INF, z_mn)
+        z_mx = torch.where(z_bad, _INF, z_mx)
+        ov_z, _ = batch_slab(z_mn, z_mx)  # [l, S0]
+        ov_z_t = ov_z.reshape(tiles, ray_tile, s0).any(1)
+        k0 = min(p1_super_k0 or _P1_SUPER_K0, s0)
+        z_count = ov_z_t.sum(1)
+        z_order = _top_k_indices(ov_z_t.to(torch.int32) * (s0 - arange(s0)), k0)
+        l0_over = z_count > k0
+        sg_slots = (z_order[..., None] * f0 + arange(f0)).reshape(tiles, k0 * f0)
+        sg_slots = sg_slots.clamp(max=s_pad0 - 1)
+        ov_s1, _ = batch_slab(smnp[sg_slots], smxp[sg_slots])  # [tiles, rt, k0*f0]
+        ov_s_t = ov_s1.any(1)
+        nsl = k0 * f0
+        s_count = ov_s_t.sum(1)
+        sel1 = _top_k_indices(ov_s_t.to(torch.int32) * (nsl - arange(nsl)), min(ks, nsl))
+        s_order = torch.gather(sg_slots, 1, sel1)
+        ks = min(ks, nsl)
+        s_over = l0_over | (s_count > ks)
+    else:
+        ov_s, _ = batch_slab(s_mn, s_mx)  # [l, S]
+        ov_s_t = ov_s.reshape(tiles, ray_tile, s).any(1)
+        s_count = ov_s_t.sum(1)
+        s_order = _top_k_indices(ov_s_t.to(torch.int32) * (s - arange(s)), ks)
+        s_over = s_count > ks
+
+    # --- level 2: member clusters of each tile's admitted supergroups
+    members = (s_order[..., None] * fanout + arange(fanout)).reshape(tiles, ks * fanout)
+    members = members.clamp(max=c_pad1 - 1)
+    rs = ray_tile // sub_tiles
+    kf = ks * fanout
+    ov_c, tnear_c = batch_slab(mnp[members], mxp[members])  # [tiles, rt, kf]
+    ov_sb = ov_c.reshape(tiles, sub_tiles, rs, kf).any(2)  # [tiles, st, kf]
+    tnear_sb = tnear_c.reshape(tiles, sub_tiles, rs, kf).amin(2)
+    ov_ct = ov_sb.any(1)
+    tnear_t = tnear_sb.amin(1)
+    weights = torch.bitwise_left_shift(torch.ones((), dtype=torch.int32, device=dev), arange(sub_tiles))
+    bits_all = (ov_sb.to(torch.int32) * weights[None, :, None]).sum(1, dtype=torch.int32)
+
+    count = ov_ct.sum(1).to(torch.int32)
+    k_eff = min(k_max, kf)
+    tkey = torch.where(ov_ct, tnear_t, _INF)
+    sel = _top_k_indices(-tkey, k_eff)
+    order = torch.gather(members, 1, sel).to(torch.int32)
+    bits = torch.gather(bits_all, 1, sel)
+    if k_eff < k_max:
+        zpad = torch.zeros((tiles, k_max - k_eff), dtype=torch.int32, device=dev)
+        order = torch.cat([order, zpad], 1)
+        bits = torch.cat([bits, zpad], 1)
+    over = s_over | (count > k_eff)
+    meta = torch.stack([count.clamp(max=k_eff), over.to(torch.int32)], dim=1)
+    # pad slots >= count with the last valid candidate and bits 0
+    pos = arange(k_max)[None, :]
+    count_col = meta[:, 0:1]
+    last = torch.clamp(torch.minimum(pos, count_col - 1), min=0).long()
+    order = torch.where(count_col > 0, torch.gather(order, 1, last), 0).to(torch.int32)
+    bits = torch.where(pos < count_col, bits, 0).to(torch.int32)
+    return order.contiguous(), meta.contiguous(), bits.contiguous()
+
+
+class TraversalInputs(NamedTuple):
+    """Phase-2 operands, shared by the CUDA kernel and its plain version.
+    Lanes are padded to whole tiles; every float is f32, every id int32."""
+
+    origin: torch.Tensor  # [3, lanes]
+    direction: torch.Tensor  # [3, lanes] (zero = dead lane)
+    tmin: torch.Tensor  # [lanes]
+    tri_pack: torch.Tensor  # [16, T]
+    mn: torch.Tensor  # [Cp, 3] cluster boxes, +inf-padded to group*super
+    mx: torch.Tensor
+    g_mn: torch.Tensor  # [Cp / group_size, 3]
+    g_mx: torch.Tensor
+    s_mn: torch.Tensor  # [n_super, 3]
+    s_mx: torch.Tensor
+    s_order: torch.Tensor  # [n_super] supergroup visit order (near-to-far)
+    g_order: torch.Tensor  # [n_groups] group order within each supergroup
+    cand: torch.Tensor  # [tiles, K] (K = 1 dummy when sweep-only)
+    meta: torch.Tensor  # [tiles, 2] (count, overflow)
+    bits: torch.Tensor  # [tiles, K]
+
+
+class TraversalShape(NamedTuple):
+    ray_tile: int
+    cluster_size: int
+    group_size: int
+    super_size: int
+    sub_tiles: int
+    k_max: int  # candidate-list width; 0 = sweep every tile
+    mt_group: int
+    mt_tail: bool
+
+
+def _sweep_visit_order(inp: TraversalInputs, shape: TraversalShape):
+    """Cluster ids in the order the sweep visits them."""
+    if shape.super_size == 1:
+        groups = inp.s_order.long()
+    else:
+        groups = inp.g_order.long().reshape(-1, shape.super_size)[inp.s_order.long()].reshape(-1)
+    gs = shape.group_size
+    return (groups[:, None] * gs + torch.arange(gs, device=groups.device)).reshape(-1)
+
+
+def _slab_rays(o, d, tmin, alive, mn, mx, best):
+    """The kernel's per-ray slab test (``_slab_overlap``) of rays [3, R]
+    against boxes [B, 3]: [R, B]."""
+    o, d = o[..., None], d[..., None]
+    inv = 1.0 / torch.where(d == 0.0, 1.0, d)
+    tn = tf = None
+    for ax in range(3):
+        t1 = (mn[:, ax] - o[ax]) * inv[ax]
+        t2 = (mx[:, ax] - o[ax]) * inv[ax]
+        lo = torch.minimum(t1, t2)
+        hi = torch.maximum(t1, t2)
+        inside = (o[ax] >= mn[:, ax]) & (o[ax] <= mx[:, ax])
+        dz = d[ax] == 0.0
+        lo = torch.where(dz, torch.where(inside, -_BIG, _BIG), lo)
+        hi = torch.where(dz, torch.where(inside, _BIG, -_BIG), hi)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    return (tf >= tn) & (tf >= tmin[:, None]) & (tn <= best) & alive[:, None]
+
+
+def _mt_window(o, d, m, tmin, f, gate, tri_ids, best):
+    """One MT window for a batch of tiles, the JAX kernel's ``_eval``.
+
+    o, d, m [3, n, rt, 1]; tmin [n, rt, 1]; f [16, n, 1, W] fields;
+    gate bool broadcastable to [n, rt, W]; tri_ids [n, 1, W] int32;
+    best = (t, tri, beta, gamma) [n, rt] tensors, updated in place where
+    the window's first-minimum valid hit is strictly nearer.
+    """
+
+    def sdot(a, k):
+        return a[0] * f[k] + a[1] * f[k + 1] + a[2] * f[k + 2]
+
+    inv = 1.0 / sdot(d, 0)
+    t = (f[15] - sdot(o, 0)) * inv
+    beta = (sdot(d, 3) - sdot(m, 9)) * inv
+    gamma = (sdot(d, 6) - sdot(m, 12)) * inv
+    valid = (t > tmin) & (torch.minimum(beta, gamma) >= 0.0) & (beta + gamma <= 1.0) & gate
+    t_m = torch.where(valid, t, _BIG)
+    tj = t_m.amin(-1)
+    cols = torch.arange(t_m.shape[-1], device=t_m.device)
+    j = torch.where(t_m == tj[..., None], cols, 2**30).amin(-1, keepdim=True)
+    better = tj < best[0]
+    # + 0.0: the JAX kernel extracts the winner by a masked sum, which
+    # turns a -0.0 barycentric into +0.0
+    best[0].copy_(torch.where(better, tj, best[0]))
+    tri = torch.gather(tri_ids.expand(-1, j.shape[1], -1), -1, j)[..., 0]
+    best[1].copy_(torch.where(better, tri, best[1]))
+    best[2].copy_(torch.where(better, torch.gather(beta, -1, j)[..., 0] + 0.0, best[2]))
+    best[3].copy_(torch.where(better, torch.gather(gamma, -1, j)[..., 0] + 0.0, best[3]))
+
+
+def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape,
+                          tile_chunk: int = 16, cluster_chunk: int = 64):
+    """Plain PyTorch version of the traversal kernel: (t, tri, beta, gamma)
+    per lane, t = 3e38 where no hit.
+
+    Candidate tiles (K1) evaluate the same windows as the kernel,
+    vectorised over a chunk of tiles and the window's columns, window by
+    window in list order; a window is always G wide here (the tail
+    window's extra slots are padding that repeats the last candidate with
+    bits 0, so it cannot change a result).
+
+    Sweep tiles (K2) evaluate every cluster in the sweep's visit order,
+    each ray sub-block gated by the per-ray slab test with the loosest
+    running best (3e38), and skip the running-best prune.  This rests on
+    the assumption the JAX kernel's candidate mode already makes
+    (``_mt_kernel.process``): a valid MT hit lies inside its own
+    cluster's box, so a cluster the prune would skip (entry beyond the
+    current best) holds no nearer hit.
+    """
+    rt, cs, st = shape.ray_tile, shape.cluster_size, shape.sub_tiles
+    dev = inp.origin.device
+    lanes = inp.origin.shape[1]
+    tiles = lanes // rt
+    o = inp.origin.reshape(3, tiles, rt)
+    d = inp.direction.reshape(3, tiles, rt)
+    m = torch.stack([
+        d[1] * o[2] - d[2] * o[1],
+        d[2] * o[0] - d[0] * o[2],
+        d[0] * o[1] - d[1] * o[0],
+    ])
+    tmin = inp.tmin.reshape(tiles, rt)
+    best = (
+        torch.full((tiles, rt), _BIG, dtype=torch.float32, device=dev),
+        torch.zeros((tiles, rt), dtype=torch.int32, device=dev),
+        torch.zeros((tiles, rt), dtype=torch.float32, device=dev),
+        torch.zeros((tiles, rt), dtype=torch.float32, device=dev),
+    )
+    sub = torch.arange(rt, device=dev) // (rt // st)
+    ar_cs = torch.arange(cs, dtype=torch.int32, device=dev)
+    pack = inp.tri_pack
+
+    def run(tsel, cols, gate):
+        # tsel [n] tile ids; cols [n, W] triangle ids; gate -> [n, rt, W]
+        n, w = cols.shape
+        f = pack[:, cols.reshape(-1).long()].reshape(16, n, 1, w)
+        b = tuple(x[tsel] for x in best)
+        _mt_window(o[:, tsel, :, None], d[:, tsel, :, None], m[:, tsel, :, None],
+                   tmin[tsel][..., None], f, gate, cols[:, None, :], b)
+        for x, y in zip(best, b):
+            x[tsel] = y
+
+    sweep = inp.meta[:, 1] != 0
+    if shape.k_max > 0:
+        g = shape.mt_group
+        n_win = (inp.meta[:, 0] + g - 1) // g
+        cand_tiles = torch.nonzero(~sweep).reshape(-1)
+        max_win = int(n_win[cand_tiles].max()) if cand_tiles.numel() else 0
+        for s in range(max_win):
+            act = cand_tiles[n_win[cand_tiles] > s]
+            for tsel in act.split(tile_chunk):
+                slots = inp.cand[tsel, g * s : g * s + g]
+                wbits = inp.bits[tsel, g * s : g * s + g]
+                uni = wbits[:, 0]
+                for q in range(1, g):
+                    uni = uni | wbits[:, q]
+                gate = (torch.bitwise_right_shift(uni[:, None], sub[None, :]) & 1) != 0
+                cols = (slots[:, :, None] * cs + ar_cs).reshape(len(tsel), g * cs)
+                run(tsel, cols, gate[..., None])
+    else:
+        sweep = torch.ones_like(sweep)
+
+    sweep_tiles = torch.nonzero(sweep).reshape(-1)
+    if sweep_tiles.numel():
+        visit = _sweep_visit_order(inp, shape)
+        vmn, vmx = inp.mn[visit], inp.mx[visit]
+        for tile in sweep_tiles.tolist():
+            to, td = o[:, tile], d[:, tile]
+            alive = (td[0] * td[0] + td[1] * td[1] + td[2] * td[2]) > 0.0
+            ov = _slab_rays(to, td, tmin[tile], alive, vmn, vmx, _BIG)  # [rt, Cv]
+            sub_ov = ov.reshape(st, rt // st, -1).any(1)  # [st, Cv]
+            keep = sub_ov.any(0)
+            vis_k, sub_k = visit[keep], sub_ov[:, keep]
+            tsel = torch.tensor([tile], device=dev)
+            for c0 in range(0, vis_k.numel(), cluster_chunk):
+                ids = vis_k[c0 : c0 + cluster_chunk]
+                cols = (ids[:, None].to(torch.int32) * cs + ar_cs).reshape(1, -1)
+                gate = sub_k[:, c0 : c0 + cluster_chunk][sub]  # [rt, nc]
+                gate = gate.repeat_interleave(cs, dim=1)[None]
+                run(tsel, cols, gate)
+    return tuple(x.reshape(-1) for x in best)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel binding
+
+_CSRC = Path(__file__).resolve().parent / "csrc" / "mt_traverse.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rts_tpu_torch"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+_SMEM_MAX = 227 * 1024
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the traversal kernel is built from source at first use")
+
+
+def build_kernel(verbose: bool = False) -> Path:
+    """Compile ``csrc/mt_traverse.cu`` for sm_90a into ``build/rts_tpu_torch``
+    (once per source hash) and return the shared library's path.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    src = _CSRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"libmt_traverse_{tag}.so"
+    if out.exists() and not verbose:
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp, str(_CSRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr.strip())
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    return out
+
+
+class _Kernel:
+    """Loaded library (one per process) and the launch counter."""
+
+    lib = None
+
+
+def _load():
+    if _Kernel.lib is None:
+        lib = ctypes.CDLL(str(build_kernel()))
+        fn = lib.mt_traverse_launch
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _Kernel.lib = lib
+    return _Kernel.lib
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
+    dev = inp.origin.device
+    rt, cs = shape.ray_tile, shape.cluster_size
+    lanes = inp.origin.shape[1]
+    tiles = lanes // rt
+    n_tris = inp.tri_pack.shape[1]
+    cp = inp.mn.shape[0]
+    n_groups = cp // shape.group_size
+    n_super = n_groups // shape.super_size
+    k_width = inp.cand.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    if not (32 <= rt <= 1024 and lanes == tiles * rt):
+        raise ValueError(f"ray_tile must be in [32, 1024] and divide the lanes; got {rt}, {lanes}")
+    if not 1 <= shape.sub_tiles <= 32:
+        raise ValueError(f"sub_tiles must be in [1, 32]; got {shape.sub_tiles}")
+    if shape.mt_group > 32:
+        raise ValueError(f"mt_group must be <= 32; got {shape.mt_group}")
+    for name, shp, dt in (
+        ("origin", (3, lanes), f32), ("direction", (3, lanes), f32), ("tmin", (lanes,), f32),
+        ("tri_pack", (16, n_tris), f32), ("mn", (cp, 3), f32), ("mx", (cp, 3), f32),
+        ("g_mn", (n_groups, 3), f32), ("g_mx", (n_groups, 3), f32),
+        ("s_mn", (n_super, 3), f32), ("s_mx", (n_super, 3), f32),
+        ("s_order", (n_super,), i32), ("g_order", (n_groups,), i32),
+        ("cand", (tiles, k_width), i32), ("meta", (tiles, 2), i32), ("bits", (tiles, k_width), i32),
+    ):
+        _check(name, getattr(inp, name), dt, shp, dev)
+    smem = 16 * max(shape.mt_group if shape.k_max else 1, 1) * cs * 4
+    if smem > _SMEM_MAX:
+        raise ValueError(f"window of {smem} B exceeds the {_SMEM_MAX} B of shared memory")
+    out_t = torch.empty(lanes, dtype=f32, device=dev)
+    out_tri = torch.empty(lanes, dtype=i32, device=dev)
+    out_b = torch.empty(lanes, dtype=f32, device=dev)
+    out_g = torch.empty(lanes, dtype=f32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mt_traverse_launch(
+            *(x.data_ptr() for x in inp), out_t.data_ptr(), out_tri.data_ptr(),
+            out_b.data_ptr(), out_g.data_ptr(),
+            tiles, rt, n_tris, cp, cs, shape.group_size, shape.super_size,
+            shape.sub_tiles, shape.k_max, k_width, shape.mt_group, int(shape.mt_tail),
+            smem, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mt_traverse kernel launch failed: cudaError {err}")
+    mt_traverse.launches += 1
+    return out_t, out_tri, out_b, out_g
+
+
+def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
+    """Phase 2: (t, tri, beta, gamma) per lane, t = 3e38 where no hit.
+
+    CUDA tensors launch ``csrc/mt_traverse.cu`` (and count the launch in
+    ``mt_traverse.launches``); CPU tensors run ``mt_traverse_reference``.
+    """
+    kind = inp.origin.device.type
+    if kind == "cuda":
+        return _mt_traverse_cuda(inp, shape)
+    if kind == "cpu":
+        return mt_traverse_reference(inp, shape)
+    raise ValueError(f"mt_traverse runs on CUDA or CPU tensors, got {kind}")
+
+
+mt_traverse.launches = 0
+
+
+def closest_hit_clustered(
+    origin,  # [3, L]
+    direction,  # [3, L]
+    tmin,  # [L]
+    tri_pack,  # [16, T] packed fields, T = C * cluster_size
+    aabb_mn,  # [C, 3]
+    aabb_mx,  # [C, 3]
+    sort_origin=None,  # [3] — visit groups near-to-far from here (the Tx)
+    *,
+    cluster_size: int = 256,
+    ray_tile: int = 256,
+    group_size: int = 8,
+    super_size: int = 8,
+    sub_tiles: int = 4,
+    candidates: int = 64,
+    mt_group: int = 2,
+    mt_union: bool = True,
+    mt_tail: bool = False,
+    mt_prune: bool = False,
+    cand_order: str = "near",
+    p1_fanout: int | None = None,
+    p1_super_k: int | None = None,
+    p1_fanout0: int | None = None,
+    p1_super_k0: int | None = None,
+    resident_cap: int = 0,
+    emit_shade: bool = False,
+    traverse=None,  # phase-2 function; default mt_traverse
+) -> HitResult:
+    """Closest valid triangle per ray via clustered traversal (float32).
+
+    Rays are components-major ([3, L], the engine layout: the JAX
+    function's ``components=True``).  The wrapper logic is the JAX one:
+    outward f32 narrowing of wider boxes, ``+inf`` sentinel padding of the
+    cluster list, group and supergroup boxes, near-to-far visit orders
+    from ``sort_origin``, lane padding to whole tiles, phase 1, phase 2.
+    ``traverse`` swaps the phase-2 function (``mt_traverse_reference``
+    runs the plain version on any device).
+    """
+    for flag, name, roadmap in (
+        (mt_prune, "mt_prune=True", "K3"), (resident_cap > 0, "resident_cap>0", "K5"),
+        (emit_shade, "emit_shade=True", "K4"), (not mt_union, "mt_union=False", "K6"),
+        (cand_order != "near", f"cand_order={cand_order!r}", "A.6"),
+    ):
+        if flag:
+            raise NotImplementedError(f"{name} is not ported to rts_tpu_torch yet (ROADMAP {roadmap})")
+    dev = origin.device
+    l = origin.shape[1]
+    t_total = tri_pack.shape[1]
+    if tri_pack.shape[0] != 16:
+        raise ValueError(f"tri_pack must have 16 rows; got {tri_pack.shape[0]}")
+    if t_total % cluster_size:
+        raise ValueError(
+            f"tri_pack columns ({t_total}) must be a multiple of cluster_size ({cluster_size})"
+        )
+    if ray_tile % sub_tiles:
+        raise ValueError(f"ray_tile ({ray_tile}) must be divisible by sub_tiles ({sub_tiles})")
+    c = t_total // cluster_size
+    if aabb_mn.shape[0] != c or aabb_mx.shape[0] != c:
+        raise ValueError(f"AABB rows ({aabb_mn.shape[0]}) != cluster count ({c})")
+    if mt_group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"mt_group must be 1/2/4/8/16/32, got {mt_group}")
+    if candidates > 0:
+        mt_group = min(mt_group, candidates)
+        if candidates % mt_group:
+            raise ValueError(f"candidates ({candidates}) must be a multiple of mt_group ({mt_group})")
+    rt = ray_tile
+    f32 = torch.float32
+
+    # narrow wider boxes to f32 OUTWARD, so a box never shrinks below its
+    # (independently rounded) triangles
+    if aabb_mn.dtype != f32:
+        mn32, mx32 = aabb_mn.to(f32), aabb_mx.to(f32)
+        aabb_mn = torch.where(mn32.to(aabb_mn.dtype) > aabb_mn,
+                              torch.nextafter(mn32, torch.full_like(mn32, -_INF)), mn32)
+        aabb_mx = torch.where(mx32.to(aabb_mx.dtype) < aabb_mx,
+                              torch.nextafter(mx32, torch.full_like(mx32, _INF)), mx32)
+
+    # pad the cluster list to a group*supergroup multiple with [+inf, +inf]
+    # boxes, which every slab test rejects (an inverted box would not be)
+    gs, ss = group_size, super_size
+    c_pad = -(-c // (gs * ss)) * (gs * ss)
+    if c_pad > c:
+        pad = torch.full((c_pad - c, 3), _INF, dtype=f32, device=dev)
+        aabb_mn = torch.cat([aabb_mn, pad])
+        aabb_mx = torch.cat([aabb_mx, pad])
+    n_groups = c_pad // gs
+    n_super = n_groups // ss
+    g_mn = aabb_mn.reshape(n_groups, gs, 3).amin(1)
+    g_mx = aabb_mx.reshape(n_groups, gs, 3).amax(1)
+    s_mn = g_mn.reshape(n_super, ss, 3).amin(1)
+    s_mx = g_mx.reshape(n_super, ss, 3).amax(1)
+    i32 = torch.int32
+    if sort_origin is None:
+        s_order = torch.arange(n_super, dtype=i32, device=dev)
+        g_order = torch.arange(n_groups, dtype=i32, device=dev)
+    else:
+        so = torch.as_tensor(sort_origin, dtype=f32, device=dev)
+
+        def dist2(bmn, bmx):
+            q = (bmn + bmx) * 0.5 - so
+            dd = q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1] + q[:, 2] * q[:, 2]
+            # never-overlapping (all-padding) boxes go last
+            return torch.where(torch.isfinite(dd) & (bmn[:, 0] <= bmx[:, 0]), dd, _INF)
+
+        s_order = torch.argsort(dist2(s_mn, s_mx), stable=True).to(i32)
+        local = torch.argsort(dist2(g_mn, g_mx).reshape(n_super, ss), dim=1, stable=True)
+        base_i = (torch.arange(n_super, device=dev) * ss)[:, None]
+        g_order = (base_i + local).reshape(-1).to(i32)
+
+    l_pad = -(-l // rt) * rt
+    origin, direction, tmin = origin.to(f32), direction.to(f32), tmin.to(f32)
+    if l_pad > l:
+        z3 = torch.zeros((3, l_pad - l), dtype=f32, device=dev)
+        origin = torch.cat([origin, z3], 1)
+        direction = torch.cat([direction, z3], 1)
+        tmin = torch.cat([tmin, torch.zeros(l_pad - l, dtype=f32, device=dev)])
+    n_tiles = l_pad // rt
+    if candidates > 0:
+        cand, meta, bits = _tile_candidates(
+            origin, direction, tmin, aabb_mn, aabb_mx, rt, sub_tiles, candidates,
+            p1_fanout, p1_super_k, p1_fanout0, p1_super_k0,
+        )
+    else:
+        # sweep-only: dummy lists, the overflow flag sends every tile to the sweep
+        cand = torch.zeros((n_tiles, 1), dtype=i32, device=dev)
+        meta = torch.tensor([[0, 1]], dtype=i32, device=dev).repeat(n_tiles, 1)
+        bits = torch.zeros((n_tiles, 1), dtype=i32, device=dev)
+    inp = TraversalInputs(
+        origin.contiguous(), direction.contiguous(), tmin.contiguous(),
+        tri_pack.to(f32).contiguous(), aabb_mn.contiguous(), aabb_mx.contiguous(),
+        g_mn.contiguous(), g_mx.contiguous(), s_mn.contiguous(), s_mx.contiguous(),
+        s_order.contiguous(), g_order.contiguous(), cand, meta, bits,
+    )
+    shape = TraversalShape(rt, cluster_size, gs, ss, sub_tiles, candidates, mt_group, mt_tail)
+    best_t, best_tri, best_b, best_g = (traverse or mt_traverse)(inp, shape)
+    best_t = best_t[:l]
+    found = best_t < RT_DEFAULT_MAX
+    return HitResult(
+        t=torch.where(found, best_t, _INF),
+        tri=best_tri[:l],
+        beta=best_b[:l],
+        gamma=best_g[:l],
+        found=found,
+    )

@@ -1,0 +1,89 @@
+"""Receiver-sphere placement and angular acceptance windows.
+
+Host-side NumPy equivalent of ray_tracer.cpp:894-918: each receiver is a
+sphere of radius r whose centre sits a distance r along the receiver's
+boresight from the receiver position; the acceptance window is the
+(theta, phi) span centred on the *receiver position* as seen from the
+sphere centre (i.e. the back of the sphere faces the boresight).
+
+Parity quirk: the reference computes the centre with float32 trig
+(``cosf``/``sinf``/``atan2f``, ray_tracer.cpp:903-910) on double inputs;
+``strict_parity`` reproduces that narrowing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class RxSphereGeometry:
+    centre: np.ndarray  # [NR, 3]
+    radius: np.ndarray  # [NR]
+    min_theta: np.ndarray  # [NR]
+    max_theta: np.ndarray  # [NR]
+    min_phi: np.ndarray  # [NR]
+    max_phi: np.ndarray  # [NR]
+
+
+def rx_sphere_geometry(
+    rx_pos: np.ndarray,  # [NR, 3] receiver positions
+    rx_azimuth: np.ndarray,  # [NR] boresight azimuth at pulse time
+    rx_elevation: np.ndarray,  # [NR] boresight elevation at pulse time
+    sphere_radius: np.ndarray,  # [NR]
+    theta_span: np.ndarray,  # [NR] acceptance span in theta
+    phi_span: np.ndarray,  # [NR] acceptance span in phi
+    *,
+    strict_parity: bool = True,
+) -> RxSphereGeometry:
+    rx_pos = np.asarray(rx_pos, dtype=np.float64).reshape(-1, 3)
+    az = np.asarray(rx_azimuth, dtype=np.float64)
+    el = np.asarray(rx_elevation, dtype=np.float64)
+    r = np.asarray(sphere_radius, dtype=np.float64)
+
+    if strict_parity:
+        # cosf/sinf: float32 argument, float32 evaluation (cpp:903-905) —
+        # but the PRODUCTS are evaluated in double (the float results are
+        # promoted before multiplying with the double radius), so widen to
+        # f64 immediately after the narrowed trig call.
+        cos_el = np.cos(np.float32(el), dtype=np.float32).astype(np.float64)
+        sin_el = np.sin(np.float32(el), dtype=np.float32).astype(np.float64)
+        cos_az = np.cos(np.float32(az), dtype=np.float32).astype(np.float64)
+        sin_az = np.sin(np.float32(az), dtype=np.float32).astype(np.float64)
+    else:
+        cos_el, sin_el, cos_az, sin_az = np.cos(el), np.sin(el), np.cos(az), np.sin(az)
+
+    # left-associated like the C++ expression: (r * cosf(el)) * cosf(az)
+    centre = rx_pos + np.stack(
+        [(r * cos_el) * cos_az, (r * cos_el) * sin_az, r * sin_el], axis=-1
+    )
+
+    # Receiver position in spherical coords relative to the sphere centre
+    # (cpp:907-910); atan2f is float32.
+    d = rx_pos - centre
+    if strict_parity:
+        theta0 = np.arctan2(
+            d[:, 1].astype(np.float32), d[:, 0].astype(np.float32), dtype=np.float32
+        ).astype(np.float64)
+        phi0 = np.arctan2(
+            d[:, 2].astype(np.float32),
+            np.sqrt(d[:, 0] ** 2 + d[:, 1] ** 2).astype(np.float32),
+            dtype=np.float32,
+        ).astype(np.float64)
+    else:
+        theta0 = np.arctan2(d[:, 1], d[:, 0])
+        phi0 = np.arctan2(d[:, 2], np.sqrt(d[:, 0] ** 2 + d[:, 1] ** 2))
+
+    th_span = np.asarray(theta_span, dtype=np.float64)
+    ph_span = np.asarray(phi_span, dtype=np.float64)
+    return RxSphereGeometry(
+        centre=centre,
+        radius=r,
+        min_theta=theta0 - th_span / 2,
+        max_theta=theta0 + th_span / 2,
+        min_phi=phi0 - ph_span / 2,
+        max_phi=phi0 + ph_span / 2,
+    )
+

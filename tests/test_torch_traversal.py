@@ -1,0 +1,201 @@
+"""The port's clustered traversal against rts_tpu's (Pallas in interpret mode).
+
+Phase 1 (``_tile_candidates``) must be bit-identical: it is compares,
+min/max and one multiply per slab, with no operation whose rounding the
+two frameworks could order differently.  Phase 2 (the MT traversal) must
+find the same triangles (``tri``/``found`` identical).  Its t, beta and
+gamma are held to a few ulps, not bit equality, because XLA's CPU backend
+contracts a*b + c into fused multiply-adds (the port, like the CUDA
+kernel, rounds every product), and beta/gamma are differences of nearly
+equal dot products at ~1 km, which amplifies a one-ulp change of an
+operand: t is held to rtol 4e-6 (~32 ulp) and beta/gamma to an absolute
+2e-5 of their [0, 1] range.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rts_tpu.accel import cluster_aabbs as j_cluster_aabbs
+from rts_tpu.accel import cluster_reorder as j_cluster_reorder
+from rts_tpu.engine.types import scene_to_device
+from rts_tpu.geometry import rect_mesh, sphere_mesh
+from rts_tpu.geometry.scene import compile_scene
+from rts_tpu.ops import closest_hit_clustered as j_closest_hit
+from rts_tpu.ops import cluster_trace as JCT
+from rts_tpu.ops import pack_tri_fields
+
+from rts_tpu_torch.ops import cluster_trace as TCT
+from rts_tpu_torch.ops import closest_hit_clustered, mt_traverse_reference
+
+torch.set_num_threads(1)
+
+CS, RT = 128, 128
+T_RTOL = 4e-6
+BARY_ATOL = 2e-5
+
+
+def _t(a, dtype=None):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def _random_boxes(rng, c, spread=300.0):
+    lo = rng.uniform(-spread, spread, (c, 3)).astype(np.float32)
+    hi = lo + rng.uniform(1, 100, (c, 3)).astype(np.float32)
+    return lo, hi
+
+
+def _random_rays_c(rng, l, spread=350.0):
+    o = rng.uniform(-spread, spread, (3, l)).astype(np.float32)
+    d = rng.normal(size=(3, l)).astype(np.float32)
+    d[1:, :16] = 0.0  # axis-aligned
+    d[:, -8:] = 0.0  # dead lanes
+    o[:, 16:24] = 0.0
+    tmin = np.full(l, 0.005, np.float32)
+    return o, d, tmin
+
+
+def _both_candidates(o, d, tmin, lo, hi, rt, st, k, **kw):
+    j = JCT._tile_candidates(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
+                             jnp.asarray(lo), jnp.asarray(hi), rt, st, k, **kw)[:3]
+    t = TCT._tile_candidates(_t(o), _t(d), _t(tmin), _t(lo), _t(hi), rt, st, k, **kw)
+    return [np.asarray(a) for a in j], [a.numpy() for a in t]
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["dense", "list_padding", "narrow_list", "overflow", "sentinels"],
+)
+def test_phase1_bit_identical(case):
+    """cand/meta/bits equal rts_tpu's, element for element, on random
+    boxes and rays (axis-aligned, dead and boxed-in lanes included)."""
+    rng = np.random.default_rng({"dense": 1, "list_padding": 2, "narrow_list": 3,
+                                 "overflow": 4, "sentinels": 5}[case])
+    c = 96
+    lo, hi = _random_boxes(rng, c)
+    if case == "sentinels":
+        lo[-7:] = np.inf
+        hi[-7:] = np.inf
+    o, d, tmin = _random_rays_c(rng, 256)
+    kw = dict(p1_fanout=4, p1_super_k=24)
+    k = 64
+    if case == "list_padding":
+        k = 96  # wider than any tile's count: every list is padded
+    elif case == "narrow_list":
+        kw = dict(p1_fanout=4, p1_super_k=3)  # k_eff = 12 < k_max: zero-padded tail
+    elif case == "overflow":
+        kw = dict(p1_fanout=4, p1_super_k=2)  # admission cap far below the overlaps
+    j, t = _both_candidates(o, d, tmin, lo, hi, 64, 4, k, **kw)
+    if case == "overflow":
+        assert j[1][:, 1].any()
+    else:
+        assert j[1][:, 0].max() > 2
+    for a, b, name in zip(j, t, ("cand", "meta", "bits")):
+        np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def test_phase1_level0_bit_identical(monkeypatch):
+    """The level-0 pass (big scenes) forced on through the threshold, in
+    both packages, with and without level-0 overflow."""
+    rng = np.random.default_rng(11)
+    lo, hi = _random_boxes(rng, 96)
+    o, d, tmin = _random_rays_c(rng, 256)
+    monkeypatch.setattr(JCT, "_P1_L0_MIN_S", 8)
+    monkeypatch.setattr(TCT, "_P1_L0_MIN_S", 8)
+    for k0 in (None, 1):
+        j, t = _both_candidates(o, d, tmin, lo, hi, 64, 4, 64,
+                                p1_fanout=2, p1_super_k=48, p1_super_k0=k0)
+        assert j[1][:, 0].max() > 2
+        if k0 == 1:
+            assert j[1][:, 1].any()
+        for a, b, name in zip(j, t, ("cand", "meta", "bits")):
+            np.testing.assert_array_equal(b, a, err_msg=f"{name} k0={k0}")
+
+
+def _scene():
+    mesh, _ = sphere_mesh(3, 50.0)
+    plate = rect_mesh(2.0, 150.0, 150.0).translated([300.0, 100.0, 0.0])
+    scene = compile_scene([mesh.translated([900.0, 0.0, 0.0]), plate], [0.9, 0.7], [1.0, 1.0])
+    dev = scene_to_device(j_cluster_reorder(scene, cluster_size=CS), dtype=jnp.float32)
+    mn, mx = j_cluster_aabbs(dev.tri_p0, dev.tri_e0, dev.tri_e1, CS, xp=jnp)
+    pack = pack_tri_fields(dev.tri_n, dev.tri_c1, dev.tri_c0, dev.tri_e1, dev.tri_e0, dev.tri_np0)
+    return pack, mn, mx
+
+
+def _rays(l=3 * RT, seed=0):
+    rng = np.random.default_rng(seed)
+    o = np.zeros((3, l), np.float32)
+    o[:, l // 2 :] = rng.uniform(-100, 1000, (3, l - l // 2))
+    d = np.zeros((3, l), np.float32)
+    q = l // 4
+    d[:, :q] = np.stack([np.ones(q), rng.uniform(-0.1, 0.1, q), rng.uniform(-0.1, 0.1, q)])
+    d[:, q:-8] = rng.normal(size=(3, l - q - 8))
+    aim = np.array([[900.0], [0.0], [0.0]]) + rng.uniform(-40, 40, (3, 40))
+    d[:, l // 2 : l // 2 + 40] = aim - o[:, l // 2 : l // 2 + 40]
+    return o, d, np.full(l, 0.005, np.float32)
+
+
+_MODES = {
+    "candidates_g8_tail": dict(candidates=48, mt_group=8, mt_tail=True, sub_tiles=8),
+    "sweep_only": dict(candidates=0, sub_tiles=4),
+    "forced_overflow": dict(candidates=16, mt_group=4, p1_fanout=2, p1_super_k=1, sub_tiles=4),
+    "sweep_supergroups": dict(candidates=0, group_size=2, super_size=2, sub_tiles=2),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_traversal_matches_rts_tpu(mode):
+    """closest_hit_clustered, plain version on the CPU, against rts_tpu's
+    Pallas kernel in interpret mode on identical inputs."""
+    pack, mn, mx = _scene()
+    o, d, tmin = _rays()
+    sort_origin = np.zeros(3, np.float32)
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1)
+    kw.update(_MODES[mode])
+    ref = j_closest_hit(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), pack, mn, mx,
+                        jnp.asarray(sort_origin), components=True, interpret=True, **kw)
+    got = closest_hit_clustered(_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx),
+                                _t(sort_origin), **kw)
+    found = np.asarray(ref.found)
+    assert found.sum() > 60
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_array_equal(got.tri.numpy()[found], np.asarray(ref.tri)[found])
+    np.testing.assert_allclose(got.t.numpy()[found], np.asarray(ref.t)[found], rtol=T_RTOL)
+    for name in ("beta", "gamma"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[found],
+                                   np.asarray(getattr(ref, name))[found], rtol=0, atol=BARY_ATOL)
+    if mode == "forced_overflow":
+        # the overflow really sent tiles to the sweep
+        lp = o.shape[1]
+        _, meta, _ = TCT._tile_candidates(_t(o), _t(d), _t(tmin), _t(mn), _t(mx), RT, 4, 16, p1_fanout=2,
+                                          p1_super_k=1)
+        assert meta[:, 1].any() and lp % RT == 0
+
+
+@pytest.mark.parametrize(
+    "option",
+    [dict(mt_prune=True), dict(resident_cap=8), dict(emit_shade=True),
+     dict(mt_union=False), dict(cand_order="mask")],
+)
+def test_unported_options_raise(option):
+    pack, mn, mx = _scene()
+    o, d, tmin = _rays(l=RT)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        closest_hit_clustered(_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx),
+                              cluster_size=CS, ray_tile=RT, **option)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrapper runs mt_traverse_reference and never
+    counts a kernel launch."""
+    pack, mn, mx = _scene()
+    o, d, tmin = _rays(l=RT)
+    before = TCT.mt_traverse.launches
+    args = (_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx))
+    kw = dict(cluster_size=CS, ray_tile=RT, candidates=16, mt_group=4)
+    a = closest_hit_clustered(*args, **kw)
+    b = closest_hit_clustered(*args, traverse=mt_traverse_reference, **kw)
+    assert TCT.mt_traverse.launches == before
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the production CPI of the 1M-triangle
-terrain scene (BASELINE config 4) — through its public entry points, and
-fails with a non-zero exit at the first error.  There is no CPU fallback:
-without a CUDA card it exits non-zero before printing any result.
+Drives the port's two main paths through their public entry points and
+fails with a non-zero exit at the first error: the production CPI of the
+1M-triangle terrain (BASELINE config 4) and the moving-shell CPI of four
+1.31M-triangle icospheres (BASELINE config 2, ``bench.py --scene moving``).
+There is no CPU fallback: without a CUDA card it exits non-zero before
+printing any result.
 
 Phases (each line stamped with the card's name and power limit):
   1. build the traversal kernel (csrc/mt_traverse.cu) from source;
@@ -13,33 +15,56 @@ Phases (each line stamped with the card's name and power limit):
      pulse of the terrain scene at the production knobs, and a small scene
      sweep-only (candidates=0); tri/found must be identical and t/beta/
      gamma bit-equal (both round every product and divide in IEEE);
-  3. main path: prepare_cpi(preset="production", refine=False,
-     device="cuda") and trace_cpi over 8 pulses at a 63^3 fan; checks
-     received > 0, finite power, kernel launches counted, and a second
-     run bit-identical (deterministic reductions);
-  4. one pulse of the main path through the plain traversal: received,
-     emit and path rows must equal the kernel run's.
+  3. terrain main path: prepare_cpi(preset="production", device="cuda")
+     (refine=True: the float64 replay) and trace_cpi over 8 pulses at a
+     63^3 fan; checks received > 0, finite power, kernel launches counted,
+     and a second run bit-identical (deterministic reductions);
+  4. one terrain pulse through the plain traversal: received, emit and
+     path rows must equal the kernel run's;
+  a. moving scene, segment 1 of pulse 0 at its knobs (mt_prune=True, K3):
+     kernel against plain (tri/found identical, t/beta/gamma bit-equal),
+     and the kernel with the prune against the kernel without it;
+  b. the same with emit_shade=True (K4): shade bit-equal to the plain gather;
+  c. moving main path: 8 pulses with refine=True; received > 0, finite,
+     K3 launches counted, a second run bit-identical, no replay-cap
+     overflow; ms/pulse and rays/s;
+  d. one moving pulse with shade_emit=True against the gather: identical
+     received lanes, path rows and emit; K4 launches counted;
+  e. one moving pulse refined against unrefined: every decision identical;
+     the largest change in power and phase, and the replay's time.
 
-The line before the card line is a JSON object with the kernel's launches,
-error and times; the last line is the JSON result.
+The line before the card line is a JSON object with the kernel's modes,
+their launches in the main paths, errors and times; the last line is the
+JSON result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 NUM_RAYS = 63
 PULSES = 8
-TRIS = 1_000_000  # the main path's terrain
+TRIS = 1_000_000  # the terrain path's terrain
 SMALL_TRIS = 20_000  # the sweep-mode check's terrain
+MOVING_SUBDIV = 7  # 4 icospheres x 327,680 triangles
 DEVICE = "cuda"
+# the moving scene's knobs (bench.py:33-43, 201-231): shell clusters, the
+# running-best window prune, the replay and the capped post-processing.
+# replay_cap is 256, not the bench's 128: at a 63^3 fan each sphere
+# returns the 63 identical-direction copies of its centre ray, 252 lanes
+# a pulse, and a cap of 128 would leave 124 of them unrefined.
+MOVING_KNOBS = dict(accel="cluster", cluster_size=1024, candidates=128, mt_group=1, p1_fanout=16,
+                    p1_super_k=32, mt_prune=True, ray_tile=512, sub_tiles=8, mt_tail=True,
+                    compact_narrow=-1, refine=True, replay_cap=256, agg_cap=1024)
 
 
 def card_line() -> str:
@@ -73,6 +98,29 @@ def terrain_world(pulses: int, tris: int):
     return w
 
 
+def moving_world(pulses: int):
+    """BASELINE config 2 (bench.py --scene moving): four icospheres of 60 m
+    radius on linear radial paths through the nodes 12, 9, 15 and 3 of a
+    3^3 fan (directions every odd fan contains), a monostatic radar at the
+    origin with a 25 m capture sphere."""
+    import numpy as np
+
+    from rts_tpu_torch.engine.fan import generate_fan_c
+    from rts_tpu_torch.sim import Path, RadarSignal, Receiver, Target, Transmitter, World
+
+    w = World()
+    w.add(Transmitter(path=Path.fixed(0, 0, 0), wave=RadarSignal(carrier=10e9), pulse_count=pulses,
+                      prf=1000.0, tx_span=(0.15, 0.15, 0.0)))
+    w.add(Receiver(path=Path.fixed(0, 0, 0), sphere=(25.0, 1.2, 1.2)))
+    nodes = generate_fan_c(3, (0.0, 0.0), (0.15, 0.15, 0.0)).T.double().numpy()
+    for node, rng, speed in ((12, 900.0, -50.0), (9, 1400.0, 80.0), (15, 2000.0, -140.0),
+                             (3, 2600.0, 30.0)):
+        d = nodes[node] / np.linalg.norm(nodes[node])
+        w.add(Target(path=Path.linear([(0.0, tuple(rng * d)), (1.0, tuple((rng + speed) * d))]),
+                     shape="sphere", sphere_params=(MOVING_SUBDIV, 60.0), refl_coeff=0.9))
+    return w
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps calls, by CUDA events."""
     fn()
@@ -96,18 +144,25 @@ def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def compare_hits(got, ref, what: str) -> float:
+def compare_hits(got, ref, what: str, against: str = "the plain version") -> float:
     for name in ("found", "tri"):
         if not torch.equal(getattr(got, name), getattr(ref, name)):
-            raise AssertionError(f"{what}: {name} differs from the plain version")
+            raise AssertionError(f"{what}: {name} differs from {against}")
     err = 0.0
     f = ref.found
     for name in ("t", "beta", "gamma"):
         a, b = getattr(got, name)[f], getattr(ref, name)[f]
         err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
         if not bit_equal(a, b):
-            raise AssertionError(f"{what}: {name} not bit-equal (max abs err {err})")
+            raise AssertionError(f"{what}: {name} not bit-equal to {against} (max abs err {err})")
     return err
+
+
+def same_result(a, b) -> bool:
+    """Every leaf of two results (nested named tuples) bit-equal."""
+    if isinstance(a, tuple):
+        return all(same_result(x, y) for x, y in zip(a, b))
+    return bit_equal(a, b)
 
 
 def main() -> int:
@@ -118,14 +173,22 @@ def main() -> int:
     from rts_tpu_torch import Parameters
     from rts_tpu_torch.core.constants import SCENE_EPS
     from rts_tpu_torch.engine.animate import animate_packed
-    from rts_tpu_torch.engine.cpi import make_pulse_fn, trace_cpi
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
     from rts_tpu_torch.engine.fan import generate_fan_c
+    from rts_tpu_torch.engine.replay import replay_refine
     from rts_tpu_torch.ops import cluster_trace as CT
-    from rts_tpu_torch.sim import prepare_cpi
+    from rts_tpu_torch.sim import check_replay_overflow, prepare_cpi
 
     dev = torch.device(DEVICE)
     card = card_line()
     torch.manual_seed(0)
+    params = Parameters(num_rays=NUM_RAYS, max_refl_depth=2)
+    kernels = []
+
+    def reset_counts():
+        CT.mt_traverse.launches = 0
+        for mode in CT.mt_traverse.mode_launches:
+            CT.mt_traverse.mode_launches[mode] = 0
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -134,12 +197,11 @@ def main() -> int:
     stamp(card, f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernel against plain
-    def segment1(tris, **options):
+    def segment1(world, **options):
         """CPI state and the segment-1 closest_hit_clustered arguments of
-        pulse 0, for a terrain world of ~tris triangles."""
+        pulse 0 of ``world``."""
         t0 = time.perf_counter()
-        state = prepare_cpi(terrain_world(PULSES, tris), Parameters(num_rays=NUM_RAYS, max_refl_depth=2),
-                            preset="production", refine=False, device=dev, **options)
+        state = prepare_cpi(world, params, device=dev, **options)
         base, batch, cfg, spec = state
         scene = animate_packed(base, batch.rot[0], batch.pos[0], batch.vel[0])
         fan = generate_fan_c(cfg.num_rays, (batch.tx_dir[0, 0], batch.tx_dir[0, 1]), spec.tx_span,
@@ -149,19 +211,23 @@ def main() -> int:
         knobs = dict(cluster_size=cfg.cluster_size, ray_tile=cfg.ray_tile,
                      group_size=cfg.group_size, super_size=cfg.super_size,
                      sub_tiles=cfg.sub_tiles, candidates=cfg.candidates, mt_group=cfg.mt_group,
-                     mt_tail=cfg.mt_tail, p1_fanout=cfg.p1_fanout, p1_super_k=cfg.p1_super_k)
+                     mt_tail=cfg.mt_tail, mt_prune=cfg.mt_prune, p1_fanout=cfg.p1_fanout,
+                     p1_super_k=cfg.p1_super_k)
         args = (origin, fan, tmin, scene.tri_pack, scene.aabb_mn, scene.aabb_mx, batch.tx_origin[0])
         stamp(card, f"prepare_cpi: {int(base.tri_verts.shape[0])} triangles, "
                     f"{cfg.rays_per_fan} rays/pulse, {time.perf_counter() - t0:.2f} s")
-        return state, args, knobs
+        return state, scene, args, knobs
 
-    def check(args, knobs, what):
+    def check(args, knobs, what, plain_reps=2):
         """Kernel against plain on one segment; times of each version on
         the same phase-1 lists (captured from the kernel's call)."""
         got = CT.closest_hit_clustered(*args, **knobs)
         ref = CT.closest_hit_clustered(*args, traverse=CT.mt_traverse_reference, **knobs)
         sync()
         err = compare_hits(got, ref, what)
+        if knobs.get("emit_shade"):
+            if not bit_equal(got.shade, ref.shade):
+                raise AssertionError(f"{what}: shade not bit-equal to the plain gather")
         captured = []
 
         def capture(inp, shape):
@@ -171,22 +237,24 @@ def main() -> int:
         CT.closest_hit_clustered(*args, traverse=capture, **knobs)
         inp, shape = captured[0]
         ms = time_ms(lambda: CT.mt_traverse(inp, shape), 20)
-        plain_ms = time_ms(lambda: CT.mt_traverse_reference(inp, shape), 2)
-        stamp(card, f"phase 2 {what}: {int(got.found.sum())} of {args[1].shape[1]} rays hit, "
+        plain_ms = time_ms(lambda: CT.mt_traverse_reference(inp, shape), plain_reps)
+        stamp(card, f"{what}: {int(got.found.sum())} of {args[1].shape[1]} rays hit, "
                     f"{inp.meta.shape[0]} tiles ({int(inp.meta[:, 1].sum())} swept), tri/found "
-                    f"identical, t/beta/gamma bit-equal; kernel {ms:.3f} ms, plain "
-                    f"{plain_ms:.3f} ms per call")
-        return err, ms, plain_ms
+                    f"identical, t/beta/gamma{'/shade' if shape.emit_shade else ''} bit-equal; "
+                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
+        return got, err, ms, plain_ms, (inp, shape)
 
-    (base, batch, cfg, spec), hit_args, knobs = segment1(TRIS)
-    err, ms, plain_ms = check(hit_args, knobs, "terrain segment 1")
+    (base, batch, cfg, spec), _, hit_args, knobs = segment1(terrain_world(PULSES, TRIS),
+                                                            preset="production")
+    _, err, ms, plain_ms, _ = check(hit_args, knobs, "phase 2 terrain segment 1")
     # sweep mode: a small terrain with candidates=0 (every tile walks the
     # supergroup/group/cluster hierarchy)
-    _, s_args, s_knobs = segment1(SMALL_TRIS, candidates=0)
-    err = max(err, check(s_args, s_knobs, "sweep mode (candidates=0)")[0])
+    _, s_args, s_knobs = segment1(terrain_world(PULSES, SMALL_TRIS), preset="production",
+                                  candidates=0)[1:]
+    err = max(err, check(s_args, s_knobs, "phase 2 sweep mode (candidates=0)")[1])
 
-    # ---- 3. main path
-    CT.mt_traverse.launches = 0
+    # ---- 3. terrain main path
+    reset_counts()
     sync()
     t0 = time.perf_counter()
     out = trace_cpi(base, batch, cfg, spec)
@@ -195,7 +263,7 @@ def main() -> int:
     launches = CT.mt_traverse.launches
     received = int((out.received >= 0).sum())
     if launches == 0:
-        raise AssertionError("the main path never launched the traversal kernel")
+        raise AssertionError("the terrain path never launched the traversal kernel")
     if received == 0:
         raise AssertionError("no ray was received")
     if not bool(torch.isfinite(out.power).all() and torch.isfinite(out.agg.power).all()):
@@ -208,23 +276,23 @@ def main() -> int:
     sync()
     second_s = time.perf_counter() - t0
     for name, a, b in zip(out._fields, out, again):
-        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
-        if not all(bit_equal(x, y) for x, y in pairs):
+        if not same_result(a, b):
             raise AssertionError(f"second run differs in {name}: reductions are not deterministic")
     best_s = min(first_s, second_s)
-    stamp(card, f"phase 3 main path: {P} pulses x {R} rays, {received} received lanes, "
-                f"{int(out.agg.emit.sum())} emitted paths, {launches} kernel launches; "
-                f"{1e3 * best_s / P:.1f} ms/pulse, {P * R / best_s:.4g} rays/s "
+    stamp(card, f"phase 3 terrain main path (refine=True): {P} pulses x {R} rays, {received} "
+                f"received lanes, {int(out.agg.emit.sum())} emitted paths, {launches} kernel "
+                f"launches; {1e3 * best_s / P:.1f} ms/pulse, {P * R / best_s:.4g} rays/s "
                 f"(first run {first_s:.2f} s, second {second_s:.2f} s, bit-identical)")
+    kernels.append({"name": "mt_traverse K1/K2 (candidate windows, sweep)", "route": "cuda",
+                    "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
+                    "replaces": "rts_tpu/ops/cluster_trace.py:249", "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
 
-    # ---- 4. one pulse through the plain traversal, against the kernel
-    rx0 = type(batch.rx_geom)(*(a[0] for a in batch.rx_geom))
-    pulse0 = (batch.rot[0], batch.pos[0], batch.vel[0], rx0, batch.rx_pos[0],
-              batch.tx_origin[0], batch.tx_dir[0], batch.times[0])
+    # ---- 4. one terrain pulse through the plain traversal, against the kernel
     runs = []
     for traverse in (None, CT.mt_traverse_reference):
         one_pulse, aggregate = make_pulse_fn(base, cfg, spec, traverse=traverse)
-        res, power, doppler, delay = one_pulse(*pulse0)
+        res, power, doppler, delay = one_pulse(*pulse_args(batch, 0))
         runs.append((res, aggregate(res, power, doppler, delay)))
     (res_k, out_k), (res_p, out_p) = runs
     for name, a, b in (("received", res_k.received, res_p.received),
@@ -235,17 +303,117 @@ def main() -> int:
             raise AssertionError(f"plain-traversal pulse differs in {name}")
     stamp(card, f"phase 4 plain-traversal pulse: received ({int((res_p.received >= 0).sum())} "
                 "lanes), path rows and emit identical to the kernel run")
+    del base, batch, out, again, runs, res_k, res_p, out_k, out_p
 
-    print(json.dumps({"kernels": [{
-        "name": "mt_traverse",
-        "route": "cuda",
-        "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
-        "replaces": "rts_tpu/ops/cluster_trace.py:249",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- a. moving scene, segment 1, with the prune (K3)
+    (mbase, mbatch, mcfg, mspec), mscene, m_args, m_knobs = segment1(moving_world(PULSES), **MOVING_KNOBS)
+    hit_p, err_p, ms_p, plain_ms_p, (inp, shape) = check(m_args, m_knobs, "phase a moving segment 1, mt_prune")
+    hit_np = CT.closest_hit_clustered(*m_args, **{**m_knobs, "mt_prune": False})
+    sync()
+    compare_hits(hit_p, hit_np, "phase a moving segment 1", against="the kernel without the prune")
+    ms_np = time_ms(lambda: CT.mt_traverse(inp, shape._replace(mt_prune=False)), 20)
+    stamp(card, f"phase a: the kernel with the prune equals it without, bit for bit; without the "
+                f"prune {ms_np:.3f} ms per call")
+
+    # ---- b. the same segment with the shade emit (K4)
+    s_knobs = {**m_knobs, "emit_shade": True}
+    hit_s, err_s, ms_s, plain_ms_s, _ = check(m_args, {**s_knobs, "shade_pack": mscene.shade_pack},
+                                              "phase b moving segment 1, emit_shade")
+    compare_hits(hit_s, hit_p, "phase b moving segment 1", against="the run without the emit")
+
+    # ---- c. moving main path
+    reset_counts()
+    sync()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="replay cap overflow")  # fails the run
+        t0 = time.perf_counter()
+        mout = trace_cpi(mbase, mbatch, mcfg, mspec)
+        sync()
+        first_s = time.perf_counter() - t0
+        k3_launches = CT.mt_traverse.mode_launches["K3"]
+        m_launches = CT.mt_traverse.launches
+        counts = check_replay_overflow(mout, mcfg)
+    m_received = int((mout.received >= 0).sum())
+    if k3_launches == 0:
+        raise AssertionError("the moving path never launched the kernel with the prune")
+    if m_received == 0 or (counts == 0).any():
+        raise AssertionError(f"the moving path received too little: {counts.tolist()} lanes per pulse")
+    for name in ("power", "doppler", "delay"):
+        if not bool(torch.isfinite(getattr(mout, name)).all()):
+            raise AssertionError(f"non-finite {name} on the moving path")
+    if not all(bool(torch.isfinite(a).all()) for a in mout.agg if a.dtype.is_floating_point):
+        raise AssertionError("non-finite aggregate on the moving path")
+    t0 = time.perf_counter()
+    magain = trace_cpi(mbase, mbatch, mcfg, mspec)
+    sync()
+    second_s = time.perf_counter() - t0
+    if not same_result(mout, magain):
+        raise AssertionError("second moving run differs: not deterministic")
+    best_s = min(first_s, second_s)
+    m_ms_pulse = 1e3 * best_s / P
+    stamp(card, f"phase c moving main path (mt_prune, refine): {P} pulses x {R} rays, "
+                f"{int(mbase.tri_verts.shape[0])} triangles, {m_received} received lanes "
+                f"({counts.min()}-{counts.max()} per pulse, cap {mcfg.replay_cap}), "
+                f"{int(mout.agg.emit.sum())} emitted paths, {m_launches} kernel launches "
+                f"({k3_launches} with the prune); {m_ms_pulse:.1f} ms/pulse, "
+                f"{P * R / best_s:.4g} rays/s (first run {first_s:.2f} s, second "
+                f"{second_s:.2f} s, bit-identical)")
+    kernels.append({"name": "mt_traverse K3 (mt_prune)", "route": "cuda",
+                    "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
+                    "replaces": "rts_tpu/ops/cluster_trace.py:557", "launches": k3_launches,
+                    "max_abs_err": err_p, "ms": ms_p, "plain_ms": plain_ms_p})
+
+    # ---- d. one moving pulse with the shade emit against the gather
+    args0 = pulse_args(mbatch, 0)
+    reset_counts()
+    one_s, agg_s = make_pulse_fn(mbase, dataclasses.replace(mcfg, shade_emit=True), mspec)
+    res_s = one_s(*args0)
+    out_s = agg_s(*res_s)
+    sync()
+    k4_launches = CT.mt_traverse.mode_launches["K4"]
+    one_g, agg_g = make_pulse_fn(mbase, mcfg, mspec)
+    res_g = one_g(*args0)
+    out_g = agg_g(*res_g)
+    if k4_launches == 0:
+        raise AssertionError("the shade-emit pulse never launched the kernel's shade epilogue")
+    for name, a, b in (("received", res_s[0].received, res_g[0].received),
+                       ("path rows", res_s[0].path, res_g[0].path),
+                       ("emit", out_s.agg.emit, out_g.agg.emit),
+                       ("trace_cpi pulse 0", out_g.received, mout.received[0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"shade-emit pulse differs in {name}")
+    stamp(card, f"phase d shade-emit pulse: {k4_launches} launches with the emit; received "
+                f"({int((res_s[0].received >= 0).sum())} lanes), path rows and emit identical to "
+                f"the gather; whole result bit-identical: {same_result(out_s, out_g)}")
+    kernels.append({"name": "mt_traverse K4 (emit_shade)", "route": "cuda",
+                    "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
+                    "replaces": "rts_tpu/ops/cluster_trace.py:521", "launches": k4_launches,
+                    "max_abs_err": err_s, "ms": ms_s, "plain_ms": plain_ms_s})
+
+    # ---- e. one moving pulse refined against unrefined
+    one_u, agg_u = make_pulse_fn(mbase, dataclasses.replace(mcfg, refine=False), mspec)
+    res_u = one_u(*args0)
+    out_u = agg_u(*res_u)
+    for name, a, b in (("received", res_u[0].received, res_g[0].received),
+                       ("path rows", res_u[0].path, res_g[0].path),
+                       ("tri_seq", res_u[0].tri_seq, res_g[0].tri_seq),
+                       ("emit", out_u.agg.emit, out_g.agg.emit),
+                       ("npath", out_u.agg.npath, out_g.agg.npath),
+                       ("path_match", out_u.agg.path_match, out_g.agg.path_match)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the replay changed a decision: {name}")
+    got = out_g.received >= 0
+    d_power = float((out_g.power[got].double() / out_u.power[got].double() - 1.0).abs().max())
+    ph = lambda o: o.agg.phase.double() + o.agg.phase_lo.double()
+    d_phase = (ph(out_g) - ph(out_u)).abs()[got]
+    d_phase = float(torch.minimum(d_phase, 2 * math.pi - d_phase).max())
+    replay_ms = time_ms(lambda: replay_refine(mbase, res_u[0], mcfg, args0[-1], tx_span=mspec.tx_span), 10)
+    stamp(card, f"phase e replay: decisions identical refined and unrefined; largest change "
+                f"power {d_power:.3e} (relative), phase {d_phase:.3e} rad; replay "
+                f"{replay_ms:.3f} ms per pulse, {100 * replay_ms / m_ms_pulse:.2f}% of the "
+                f"{m_ms_pulse:.1f} ms pulse")
+
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,10 @@ class LaneAggregate(NamedTuple):
     doppler: torch.Tensor  # [R] mean Doppler
     path_match: torch.Tensor  # [R] min matching lane (R+1 for invalid lanes)
     emit: torch.Tensor  # [R] bool — this lane produces a Response
+    # f32 residual of ``phase`` (phase + phase_lo is the f64 mean phase)
+    # when the ray lengths were refined by the replay; zeros otherwise, as
+    # in the JAX package
+    phase_lo: torch.Tensor
 
 
 def _segment_sums(vals, start):
@@ -65,6 +69,7 @@ def aggregate_lanes(
     num_rx: int,
     cspeed,
     carrier,
+    ray_length_lo=None,  # [R] f32 residual of ray_length from the replay
 ) -> LaneAggregate:
     """Group, combine and pick representatives over the received lanes.
 
@@ -74,6 +79,11 @@ def aggregate_lanes(
     capped and the full-width branch of the JAX function.  Lanes that
     were not received keep their own power, delay and Doppler, phase 0,
     npath 0 and path_match R+1.
+
+    The phase is reduced and averaged in float64 from the ray length
+    (``ray_length + ray_length_lo`` when the replay refined it); it is
+    returned as the JAX package returns it: f32 ``phase`` plus, for
+    refined lengths, the f32 residual ``phase_lo``.
     """
     r = received.shape[0]
     dev = received.device
@@ -83,6 +93,7 @@ def aggregate_lanes(
     lanes = torch.nonzero(valid).reshape(-1)  # ascending lane ids
     npath = torch.zeros(r, dtype=fdtype, device=dev)
     phase = torch.zeros(r, dtype=fdtype, device=dev)
+    phase_lo = torch.zeros(r, dtype=fdtype, device=dev)
     out_power = power.clone()
     out_delay = delay.clone()
     out_dopp = doppler.clone()
@@ -93,9 +104,13 @@ def aggregate_lanes(
         # phase of the received path, reduced in float64 (aggregation.cu:59-60
         # computes it in double): -(2*pi*f/c * L mod 2*pi)
         k = 2.0 * math.pi * float(carrier) / float(cspeed)
-        ph = -torch.remainder(ray_length[lanes].double() * k, 2.0 * math.pi).to(fdtype)
+        length = ray_length[lanes].double()
+        if ray_length_lo is not None:
+            length = length + ray_length_lo[lanes].double()
+        ph = -torch.remainder(length * k, 2.0 * math.pi)
         vals = torch.stack(
-            [torch.ones_like(ph), torch.sqrt(power[lanes]), delay[lanes], ph, doppler[lanes]], dim=1
+            [torch.ones_like(ph), torch.sqrt(power[lanes]).double(), delay[lanes].double(), ph,
+             doppler[lanes].double()], dim=1
         )
 
         def grouped(keys):
@@ -121,13 +136,16 @@ def aggregate_lanes(
         sums = torch.where(direct[:, None], r_sums, g_sums)
         match[lanes] = torch.where(direct, r_min, g_min)
         n = sums[:, 0]
-        npath[lanes] = n
-        out_power[lanes] = (sums[:, 1] / n) ** 2
-        out_delay[lanes] = sums[:, 2] / n
-        phase[lanes] = sums[:, 3] / n
-        out_dopp[lanes] = sums[:, 4] / n
+        npath[lanes] = n.to(fdtype)
+        out_power[lanes] = ((sums[:, 1] / n) ** 2).to(fdtype)
+        out_delay[lanes] = (sums[:, 2] / n).to(fdtype)
+        mean_ph = sums[:, 3] / n
+        phase[lanes] = mean_ph.to(fdtype)
+        if ray_length_lo is not None:
+            phase_lo[lanes] = (mean_ph - phase[lanes].double()).to(fdtype)
+        out_dopp[lanes] = (sums[:, 4] / n).to(fdtype)
     emit = valid & (match == torch.arange(r, device=dev))
     return LaneAggregate(
         npath=npath, power=out_power, delay=out_delay, phase=phase, doppler=out_dopp,
-        path_match=match.to(torch.int32), emit=emit,
+        path_match=match.to(torch.int32), emit=emit, phase_lo=phase_lo,
     )

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from rts_tpu_torch.engine.animate import SceneBase
-from rts_tpu_torch.engine.cpi import CpiSpec, PulseBatch
+from rts_tpu_torch.engine.cpi import CpiSpec, PulseBatch, RefineExtras
 from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
 from rts_tpu_torch.physics import antenna, rcs
 from rts_tpu_torch.sim.paths import RotationPath
@@ -25,23 +25,50 @@ def tensor(a, device="cpu", dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def f64(hi, lo, device="cpu"):
+    """A double-single pair (f32 value + f32 residual) summed in float64."""
+    return tensor(np.asarray(hi, np.float64) + np.asarray(lo, np.float64), device)
+
+
 def scene_base(jbase, device="cpu") -> SceneBase:
-    """rts_tpu.engine.animate.SceneBase (built with cluster_size=...)."""
+    """rts_tpu.engine.animate.SceneBase (built with cluster_size=...); its
+    replay residuals (``with_lo=True``) become the port's f64 fields."""
     if jbase.cl_mn is None:
         raise ValueError("the JAX SceneBase has no cluster boxes: build it with cluster_size=")
-    return SceneBase(*(tensor(getattr(jbase, f), device) for f in SceneBase._fields))
+    f32_fields = [f for f in SceneBase._fields if not f.endswith("_f64")]
+    base = SceneBase(*(tensor(getattr(jbase, f), device) for f in f32_fields))
+    if jbase.tri_verts_lo is None:
+        return base
+    return base._replace(
+        tri_verts_f64=f64(jbase.tri_verts, jbase.tri_verts_lo, device),
+        tri_corner_normals_f64=f64(jbase.tri_corner_normals, jbase.tri_corner_normals_lo, device),
+        target_refl_f64=f64(jbase.target_refl, jbase.target_refl_lo, device),
+    )
 
 
 def rx_geom(jrx, device="cpu") -> RxGeomDevice:
     return RxGeomDevice(*(tensor(getattr(jrx, f), device) for f in RxGeomDevice._fields))
 
 
+def refine_extras(jbatch, device="cpu") -> RefineExtras:
+    """The f64 replay state of an rts_tpu PulseBatch built with refine=True:
+    each hi + lo pair of its ``RefineExtras`` summed in float64."""
+    x = jbatch.refine
+    return RefineExtras(
+        rot=f64(jbatch.rot, x.rot_lo, device), pos=f64(jbatch.pos, x.pos_lo, device),
+        vel=f64(jbatch.vel, x.vel_lo, device), tx_origin=f64(jbatch.tx_origin, x.txo_lo, device),
+        rx_centre=f64(jbatch.rx_geom.centre, x.rxc_lo, device),
+        rx_radius=f64(jbatch.rx_geom.radius, x.rxr_lo, device),
+        fan_rot=f64(x.fan_rot_hi, x.fan_rot_lo, device), bore=f64(x.bore_hi, x.bore_lo, device),
+    )
+
+
 def pulse_batch(jbatch, device="cpu") -> PulseBatch:
-    """rts_tpu.engine.cpi.PulseBatch (its replay extras are not carried)."""
+    """rts_tpu.engine.cpi.PulseBatch, with its replay extras when it has them."""
     return PulseBatch(*(
         rx_geom(jbatch.rx_geom, device) if f == "rx_geom" else tensor(getattr(jbatch, f), device)
-        for f in PulseBatch._fields
-    ))
+        for f in PulseBatch._fields if f != "refine"
+    ), refine=None if jbatch.refine is None else refine_extras(jbatch, device))
 
 
 def trace_config(jcfg) -> TraceConfig:

@@ -46,6 +46,12 @@ class SceneBase(NamedTuple):
     cl_mn: torch.Tensor
     cl_mx: torch.Tensor
     cl_valid: torch.Tensor
+    # float64 copies for the precision replay (engine/replay.py); None
+    # unless built with ``with_f64=True``.  The JAX package keeps f32
+    # residuals (``*_lo``) here for its double-single replay instead.
+    tri_verts_f64: torch.Tensor | None = None  # [T, 3, 3]
+    tri_corner_normals_f64: torch.Tensor | None = None  # [T, 3, 3]
+    target_refl_f64: torch.Tensor | None = None  # [NT]
 
     @property
     def num_targets(self) -> int:
@@ -53,10 +59,12 @@ class SceneBase(NamedTuple):
 
 
 def scene_base(
-    scene: SceneArrays, cluster_size: int, dtype=torch.float32, device="cpu"
+    scene: SceneArrays, cluster_size: int, dtype=torch.float32, device="cpu",
+    with_f64: bool = False,
 ) -> SceneBase:
     """Upload a cluster-reordered scene and build its per-cluster,
-    per-target base boxes (host NumPy, as in the JAX package)."""
+    per-target base boxes (host NumPy, as in the JAX package); with
+    ``with_f64`` also the float64 copies the replay reads."""
     tv = np.asarray(scene.tri_verts)
     # base boxes over the SAME dtype-rounded vertices the per-pulse pack
     # transform consumes, so the corner refit stays conservative
@@ -78,6 +86,11 @@ def scene_base(
     nrm = np.asarray(scene.tri_normals, np_dtype).reshape(-1, 9)
     shade = np.concatenate([nrm, np.asarray(scene.tri_target, np_dtype)[:, None]], axis=1)
     f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    f64 = {}
+    if with_f64:
+        d = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64), device=device)
+        f64 = dict(tri_verts_f64=d(tv), tri_corner_normals_f64=d(scene.tri_normals),
+                   target_refl_f64=d(scene.target_refl_coeff))
     return SceneBase(
         tri_verts=f(tv),
         tri_verts_t=f(tv.reshape(-1, 9).T),
@@ -89,6 +102,7 @@ def scene_base(
         cl_mn=f(mn),
         cl_mx=f(mx),
         cl_valid=torch.as_tensor(valid, device=device),
+        **f64,
     )
 
 

@@ -1,9 +1,9 @@
 """CPI tracing: a loop over pulses (counterpart of ``rts_tpu.engine.cpi``).
 
-Each pulse runs animate -> fan -> trace -> post-process -> aggregate on
-the device; the JAX package's ``map_pulses`` (``lax.map``) becomes a
-Python loop, and the per-pulse results are stacked on a leading pulse
-axis.
+Each pulse runs animate -> fan -> trace -> (replay) -> post-process ->
+aggregate on the device; the JAX package's ``map_pulses`` (``lax.map``)
+becomes a Python loop, and the per-pulse results are stacked on a
+leading pulse axis.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from rts_tpu_torch.aggregate import LaneAggregate, aggregate_lanes
 from rts_tpu_torch.engine.animate import SceneBase, animate_packed
 from rts_tpu_torch.engine.compact import received_first_idx, take_lanes
 from rts_tpu_torch.engine.fan import generate_fan_c
+from rts_tpu_torch.engine.replay import replay_refine
 from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
 from rts_tpu_torch.engine.wavefront import TraceResult, trace_fan
 from rts_tpu_torch.physics.postprocess import postprocess
@@ -31,6 +32,22 @@ class CpiResult(NamedTuple):
     agg: LaneAggregate
 
 
+class RefineExtras(NamedTuple):
+    """Per-pulse float64 state of the precision replay ([P, ...] leading
+    pulse axis), built on the host in f64 (``sim.prepare_cpi``).  The JAX
+    package's ``RefineExtras`` holds f32 residuals beside the f32 values
+    for its double-single arithmetic; these are the f64 values."""
+
+    rot: torch.Tensor  # [P, NT, 3, 3]
+    pos: torch.Tensor  # [P, NT, 3]
+    vel: torch.Tensor  # [P, NT, 3]
+    tx_origin: torch.Tensor  # [P, 3]
+    rx_centre: torch.Tensor  # [P, NR, 3]
+    rx_radius: torch.Tensor  # [P, NR]
+    fan_rot: torch.Tensor  # [P, 3, 3] composed fan rotation r1 @ rz (engine/fan.py)
+    bore: torch.Tensor  # [P, 3] boresight direction (the num_rays == 1 fan)
+
+
 class PulseBatch(NamedTuple):
     """Per-pulse dynamic inputs (leading axis P)."""
 
@@ -42,6 +59,7 @@ class PulseBatch(NamedTuple):
     tx_origin: torch.Tensor  # [P, 3]
     tx_dir: torch.Tensor  # [P, 2] boresight (azimuth, elevation)
     times: torch.Tensor  # [P] pulse start times
+    refine: RefineExtras | None = None  # when cfg.refine
 
 
 class CpiSpec(NamedTuple):
@@ -63,11 +81,14 @@ def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=Non
     ``traverse`` swaps the phase-2 traversal function (default: the CUDA
     kernel on CUDA tensors, the plain version on CPU tensors)."""
 
-    def one_pulse(rot, pos, vel, rx_geom: RxGeomDevice, rx_pos, tx_origin, tx_dir, time_t):
+    def one_pulse(rot, pos, vel, rx_geom: RxGeomDevice, rx_pos, tx_origin, tx_dir, time_t,
+                  refine: RefineExtras | None = None):
         scene = animate_packed(base, rot, pos, vel)
         fan = generate_fan_c(cfg.num_rays, (tx_dir[0], tx_dir[1]), spec.tx_span,
                              dtype=base.tri_verts.dtype, device=base.tri_verts.device)
         res = trace_fan(scene, rx_geom, tx_origin, fan, cfg, traverse=traverse)
+        if cfg.refine:
+            res = replay_refine(base, res, cfg, refine, tx_span=spec.tx_span)
 
         def post(sub: TraceResult):
             return postprocess(
@@ -100,11 +121,18 @@ def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=Non
         agg = aggregate_lanes(
             res.received, res.refl_depth, res.refr_depth, res.path, power,
             res.ray_length, doppler, num_rx=spec.num_rx, cspeed=spec.cspeed,
-            carrier=spec.carrier,
+            carrier=spec.carrier, ray_length_lo=res.ray_length_lo if cfg.refine else None,
         )
         return CpiResult(power=power, doppler=doppler, delay=delay, received=res.received, agg=agg)
 
     return one_pulse, aggregate
+
+
+def pulse_args(batch: PulseBatch, p: int) -> tuple:
+    """Pulse ``p`` of the batch as the arguments of ``one_pulse``."""
+    refine = None if batch.refine is None else RefineExtras(*(a[p] for a in batch.refine))
+    return (batch.rot[p], batch.pos[p], batch.vel[p], RxGeomDevice(*(a[p] for a in batch.rx_geom)),
+            batch.rx_pos[p], batch.tx_origin[p], batch.tx_dir[p], batch.times[p], refine)
 
 
 def _stack(results):
@@ -119,9 +147,5 @@ def trace_cpi(base: SceneBase, batch: PulseBatch, cfg: TraceConfig, spec: CpiSpe
     one_pulse, aggregate = make_pulse_fn(base, cfg, spec)
     out = []
     for p in range(batch.times.shape[0]):
-        rx_geom = RxGeomDevice(*(a[p] for a in batch.rx_geom))
-        out.append(aggregate(*one_pulse(
-            batch.rot[p], batch.pos[p], batch.vel[p], rx_geom, batch.rx_pos[p],
-            batch.tx_origin[p], batch.tx_dir[p], batch.times[p],
-        )))
+        out.append(aggregate(*one_pulse(*pulse_args(batch, p))))
     return _stack(out)

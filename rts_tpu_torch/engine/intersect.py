@@ -20,3 +20,4 @@ class HitResult(NamedTuple):
     beta: torch.Tensor  # [R]
     gamma: torch.Tensor  # [R]
     found: torch.Tensor  # [R] bool
+    shade: torch.Tensor | None = None  # [10, R] winner's shade_pack row (emit_shade), else None

@@ -82,7 +82,7 @@ class TraceConfig:
     mt_group: int = 2  # candidates per MT window
     mt_union: bool = True  # False (per-candidate windows): not ported
     mt_tail: bool = False  # half-width tail window
-    mt_prune: bool = False  # running-best window prune: not ported
+    mt_prune: bool = False  # running-best window prune (kernel mode K3)
     cand_order: str = "near"  # "mask": not ported
     resident_cap: int = 0  # VMEM-resident live pack (TPU): not ported
     p1_fanout: int | None = None
@@ -98,10 +98,10 @@ class TraceConfig:
     compact_lanes: bool = False  # lane sort before late segments: not ported
     compact_narrow: int = 0  # narrow late segments (0/1 off, -1 auto, N)
     interpret: bool = False  # Pallas interpreter flag: no meaning here
-    refine: bool = False  # double-single replay: not ported (ROADMAP A.7)
+    refine: bool = False  # precision replay, native float64 here (engine/replay.py)
     replay_cap: int = 0
     agg_cap: int = 4096  # received-lane block for postprocess
-    shade_emit: bool = False  # kernel-epilogue shade emit: not ported
+    shade_emit: bool = False  # kernel-emitted winner shade rows (kernel mode K4)
     rcs_angles: bool = True
 
     @classmethod

@@ -76,6 +76,7 @@ class TraceResult(NamedTuple):
     tri_seq: torch.Tensor  # [W, R] int32
     cap_bits: torch.Tensor  # [R] int32
     cap_root0_bits: torch.Tensor  # [R] int32
+    ray_length_lo: torch.Tensor  # [R] f32 residual of ray_length (replay output; zeros here)
 
 
 def _cart_to_sph2(v):
@@ -103,7 +104,9 @@ def _process_hit(state: LaneState, bufs: TraceBuffers, hit, hit_mask, scene: Clu
     tri = hit.tri.clamp(0, scene.tri_target.shape[0] - 1).long()
     nt = scene.target_refl.shape[0]
     if cfg.interpolate_smooth:
-        shade = scene.shade_pack[tri].T  # [10, L]
+        # the kernel's emitted winner rows (shade_emit) or the [T, 10]
+        # gather: equal on found lanes; the rest are gate-masked below
+        shade = hit.shade if hit.shade is not None else scene.shade_pack[tri].T  # [10, L]
         targ = shade[9].to(torch.int32)
         cn = shade[:9].reshape(3, 3, -1)  # [corner, comp, L]
     else:
@@ -395,9 +398,12 @@ def trace_fan(
     if cfg.refraction_on:
         raise NotImplementedError("refraction is not ported to rts_tpu_torch yet (ROADMAP)")
     for flag, name in ((cfg.strict_parity, "strict_parity"), (cfg.fan_tiling, "fan_order"),
-                       (cfg.compact_lanes, "compact_lanes"), (cfg.shade_emit, "shade_emit")):
+                       (cfg.compact_lanes, "compact_lanes")):
         if flag:
             raise NotImplementedError(f"TraceConfig.{name} is not ported to rts_tpu_torch yet (ROADMAP)")
+    # the kernel emits the winner's shade row only where the smooth-shading
+    # consumer reads it (the JAX gate, minus its 32-row pack condition)
+    emit_shade = cfg.shade_emit and cfg.interpolate_smooth
     dtype = scene.tri_pack.dtype
     tx_origin = torch.as_tensor(tx_origin, dtype=dtype, device=fan_dirs.device)
     n3 = fan_dirs.shape[1]
@@ -415,7 +421,8 @@ def trace_fan(
             mt_group=cfg.mt_group, mt_union=cfg.mt_union, mt_tail=cfg.mt_tail,
             mt_prune=cfg.mt_prune, cand_order=cfg.cand_order, resident_cap=cfg.resident_cap,
             p1_fanout=cfg.p1_fanout, p1_super_k=cfg.p1_super_k,
-            p1_fanout0=cfg.p1_fanout0, p1_super_k0=cfg.p1_super_k0, traverse=traverse,
+            p1_fanout0=cfg.p1_fanout0, p1_super_k0=cfg.p1_super_k0,
+            emit_shade=emit_shade, shade_pack=scene.shade_pack, traverse=traverse,
         )
 
     def body(state, bufs):
@@ -469,4 +476,5 @@ def trace_fan(
         tri_seq=state.tri_seq,
         cap_bits=state.cap_bits,
         cap_root0_bits=state.cap_root0_bits,
+        ray_length_lo=torch.zeros_like(state.ray_length),
     )

@@ -14,10 +14,11 @@ arrive components-major ([3, L]) and are processed in tiles of
   ``torch.sort`` (ties toward the lower index, as ``top_k`` breaks them).
 
   PHASE 2 (``mt_traverse``): per tile, Moller-Trumbore over the
-  candidate windows (K1), or the hierarchical sweep for overflowed tiles
-  (K2).  On a CUDA tensor it launches the hand-written kernel
-  ``csrc/mt_traverse.cu``; on a CPU tensor it runs the plain PyTorch
-  version ``mt_traverse_reference``.
+  candidate windows (K1), optionally with the running-best window prune
+  (K3), or the hierarchical sweep for overflowed tiles (K2); optionally
+  the winner's shade row as an extra output (K4).  On a CUDA tensor it
+  launches the hand-written kernel ``csrc/mt_traverse.cu``; on a CPU
+  tensor it runs the plain PyTorch version ``mt_traverse_reference``.
 
 The TPU-only machinery of the JAX module (SMEM row packing and grid
 chunking, the f32-encoded tri ids of the packed I/O, the ``RTS_*``
@@ -55,6 +56,11 @@ _P1_SUPER_K = 16
 _P1_FANOUT0 = 8
 _P1_SUPER_K0 = 12
 _P1_L0_MIN_S = 192
+# Level 2 runs in chunks of tiles whose [tiles, rays, members] slab
+# tensors hold at most this many elements (128 MiB per f32 tensor): each
+# tile is independent, so chunking changes no bit, only peak memory.
+_P1_CHUNK_ELEMS = 1 << 25
+_ENT_PAD = 2**30  # entry-table value of padding slots (never loosens a window min)
 
 
 def _top_k_indices(key, k: int):
@@ -64,18 +70,22 @@ def _top_k_indices(key, k: int):
 
 
 def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max,
-                     p1_fanout=None, p1_super_k=None, p1_fanout0=None, p1_super_k0=None):
+                     cand_order="near", p1_fanout=None, p1_super_k=None, p1_fanout0=None,
+                     p1_super_k0=None):
     """Phase 1: per-ray-tile candidate cluster lists.
 
     Returns (cand [tiles, k_max] int32, meta [tiles, 2] int32,
-    bits [tiles, k_max] int32): meta[:, 0] is the candidate count and
-    meta[:, 1] is 1 when the tile overlaps more clusters than the list
-    holds (the traversal then sweeps the tile); bit b of ``bits`` is set
-    when ray sub-block b overlaps the candidate.  Candidates are sorted
-    near-to-far by entry distance; slots past the count repeat the last
-    valid candidate with bits 0.  ``rts_tpu.ops.cluster_trace.
-    _tile_candidates`` documents the design; this is the same
-    computation, operation for operation.
+    bits [tiles, k_max] int32, ent [tiles, k_max] int32): meta[:, 0] is
+    the candidate count and meta[:, 1] is 1 when the tile overlaps more
+    clusters than the list holds (the traversal then sweeps the tile);
+    bit b of ``bits`` is set when ray sub-block b overlaps the candidate;
+    ``ent`` is the candidate's entry distance over the tile's rays,
+    floored to 1/16 m (the ``mt_prune`` table; 2**30 in padding slots).
+    Candidates are sorted near-to-far by entry distance (``cand_order=
+    "mask"`` regroups them by sub-block mask); slots past the count
+    repeat the last valid candidate with bits 0.  ``rts_tpu.ops.
+    cluster_trace._tile_candidates`` documents the design; this is the
+    same computation, operation for operation.
     """
     dev = origin.device
     l = origin.shape[1]
@@ -92,18 +102,19 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     tmin_f = tmin.to(f32)
     arange = lambda n: torch.arange(n, dtype=torch.int32, device=dev)
 
-    def batch_slab(bmn, bmx):
-        """Exact per-ray slab vs a box set ([B, 3] shared, or [tiles, B, 3]
-        per tile): [l, B] or [tiles, rt, B] overlap and entry distance."""
+    def batch_slab(bmn, bmx, ts=slice(None)):
+        """Exact per-ray slab vs a box set ([B, 3] shared, or [n, B, 3] per
+        tile of the tile slice ``ts``): [l, B] or [n, rt, B] overlap and
+        entry distance."""
         if bmn.dim() == 2:
             comp = lambda a, ax: a[ax]
             al_, tm_ = alive, tmin_f
             expand = lambda a: a[:, None]
             bsel = lambda a, ax: a[None, :, ax]
         else:
-            comp = lambda a, ax: a[ax].reshape(tiles, ray_tile)
-            al_ = alive.reshape(tiles, ray_tile)
-            tm_ = tmin_f.reshape(tiles, ray_tile)
+            comp = lambda a, ax: a[ax].reshape(tiles, ray_tile)[ts]
+            al_ = alive.reshape(tiles, ray_tile)[ts]
+            tm_ = tmin_f.reshape(tiles, ray_tile)[ts]
             expand = lambda a: a[..., None]
             bsel = lambda a, ax: a[:, None, :, ax]
         shape = al_.shape + (bmn.shape[-2],)
@@ -190,9 +201,17 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     members = members.clamp(max=c_pad1 - 1)
     rs = ray_tile // sub_tiles
     kf = ks * fanout
-    ov_c, tnear_c = batch_slab(mnp[members], mxp[members])  # [tiles, rt, kf]
-    ov_sb = ov_c.reshape(tiles, sub_tiles, rs, kf).any(2)  # [tiles, st, kf]
-    tnear_sb = tnear_c.reshape(tiles, sub_tiles, rs, kf).amin(2)
+    step = max(1, _P1_CHUNK_ELEMS // (ray_tile * kf))
+    parts = []
+    for t0 in range(0, tiles, step):
+        ts = slice(t0, t0 + step)
+        ov_c, tnear_c = batch_slab(mnp[members[ts]], mxp[members[ts]], ts)  # [n, rt, kf]
+        n = ov_c.shape[0]
+        parts.append((ov_c.reshape(n, sub_tiles, rs, kf).any(2),  # [n, st, kf]
+                      tnear_c.reshape(n, sub_tiles, rs, kf).amin(2)))
+        del ov_c, tnear_c
+    ov_sb = torch.cat([p[0] for p in parts])
+    tnear_sb = torch.cat([p[1] for p in parts])
     ov_ct = ov_sb.any(1)
     tnear_t = tnear_sb.amin(1)
     weights = torch.bitwise_left_shift(torch.ones((), dtype=torch.int32, device=dev), arange(sub_tiles))
@@ -204,19 +223,36 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     sel = _top_k_indices(-tkey, k_eff)
     order = torch.gather(members, 1, sel).to(torch.int32)
     bits = torch.gather(bits_all, 1, sel)
+    # per-candidate entry distance (the sort key) floored to 1/16 m: the
+    # mt_prune table; the floor only under-estimates, keeping the prune exact
+    ent_f = torch.gather(tnear_t, 1, sel)
+    entq = torch.floor(torch.clamp(ent_f, max=8.0e5) * 16.0).to(torch.int32)
     if k_eff < k_max:
         zpad = torch.zeros((tiles, k_max - k_eff), dtype=torch.int32, device=dev)
         order = torch.cat([order, zpad], 1)
         bits = torch.cat([bits, zpad], 1)
+        entq = torch.cat([entq, zpad + _ENT_PAD], 1)
     over = s_over | (count > k_eff)
     meta = torch.stack([count.clamp(max=k_eff), over.to(torch.int32)], dim=1)
-    # pad slots >= count with the last valid candidate and bits 0
     pos = arange(k_max)[None, :]
     count_col = meta[:, 0:1]
+    if cand_order == "mask":
+        # window-mates share sub-block masks: sort key (bits, near-to-far
+        # rank), slots past the count last (the keys are unique)
+        if sub_tiles > 16:
+            raise ValueError("cand_order='mask' supports sub_tiles <= 16")
+        key = torch.where(pos < count_col, torch.bitwise_left_shift(bits, 12) | pos, _ENT_PAD + pos)
+        perm = torch.argsort(key, dim=1, stable=True)
+        order, bits, entq = (torch.gather(a, 1, perm) for a in (order, bits, entq))
+    elif cand_order != "near":
+        raise ValueError(f"cand_order must be 'near' or 'mask', got {cand_order!r}")
+    # pad slots >= count with the last valid candidate, bits 0 and an entry
+    # that never loosens a window's minimum
     last = torch.clamp(torch.minimum(pos, count_col - 1), min=0).long()
     order = torch.where(count_col > 0, torch.gather(order, 1, last), 0).to(torch.int32)
     bits = torch.where(pos < count_col, bits, 0).to(torch.int32)
-    return order.contiguous(), meta.contiguous(), bits.contiguous()
+    entq = torch.where(pos < count_col, entq, _ENT_PAD).to(torch.int32)
+    return order.contiguous(), meta.contiguous(), bits.contiguous(), entq.contiguous()
 
 
 class TraversalInputs(NamedTuple):
@@ -238,6 +274,8 @@ class TraversalInputs(NamedTuple):
     cand: torch.Tensor  # [tiles, K] (K = 1 dummy when sweep-only)
     meta: torch.Tensor  # [tiles, 2] (count, overflow)
     bits: torch.Tensor  # [tiles, K]
+    ent: torch.Tensor  # [tiles, K] entry distance, 1/16 m units (read under mt_prune)
+    shade_pack: torch.Tensor  # [T, 10] winner shade rows (read under emit_shade), else [0, 10]
 
 
 class TraversalShape(NamedTuple):
@@ -249,6 +287,8 @@ class TraversalShape(NamedTuple):
     k_max: int  # candidate-list width; 0 = sweep every tile
     mt_group: int
     mt_tail: bool
+    mt_prune: bool = False  # K3: running-best window prune
+    emit_shade: bool = False  # K4: winner's shade_pack row as a [10, lanes] output
 
 
 def _sweep_visit_order(inp: TraversalInputs, shape: TraversalShape):
@@ -314,14 +354,20 @@ def _mt_window(o, d, m, tmin, f, gate, tri_ids, best):
 
 def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape,
                           tile_chunk: int = 16, cluster_chunk: int = 64):
-    """Plain PyTorch version of the traversal kernel: (t, tri, beta, gamma)
-    per lane, t = 3e38 where no hit.
+    """Plain PyTorch version of the traversal kernel: (t, tri, beta, gamma,
+    shade) per lane, t = 3e38 where no hit, shade None unless
+    ``shape.emit_shade``.
 
     Candidate tiles (K1) evaluate the same windows as the kernel,
     vectorised over a chunk of tiles and the window's columns, window by
     window in list order; a window is always G wide here (the tail
     window's extra slots are padding that repeats the last candidate with
-    bits 0, so it cannot change a result).
+    bits 0, so it cannot change a result).  Under ``mt_prune`` (K3) a
+    sub-block skips a window whose minimum entry (``ent``, 1/16 m units;
+    padding slots hold 2**30) exceeds 16 x the largest running best of
+    its rays, the TPU kernel's gate at its granularity.  Under
+    ``emit_shade`` (K4) the winner's ``shade_pack`` row is gathered at the
+    end (zeros where no triangle won).
 
     Sweep tiles (K2) evaluate every cluster in the sweep's visit order,
     each ray sub-block gated by the per-ray slab test with the loosest
@@ -378,6 +424,10 @@ def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape,
                 for q in range(1, g):
                     uni = uni | wbits[:, q]
                 gate = (torch.bitwise_right_shift(uni[:, None], sub[None, :]) & 1) != 0
+                if shape.mt_prune:
+                    em = inp.ent[tsel, g * s : g * s + g].amin(1).to(torch.float32)
+                    bmax = best[0][tsel].reshape(len(tsel), st, rt // st).amax(-1)
+                    gate = gate & (em[:, None] <= bmax * 16.0)[:, sub]
                 cols = (slots[:, :, None] * cs + ar_cs).reshape(len(tsel), g * cs)
                 run(tsel, cols, gate[..., None])
     else:
@@ -401,7 +451,11 @@ def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape,
                 gate = sub_k[:, c0 : c0 + cluster_chunk][sub]  # [rt, nc]
                 gate = gate.repeat_interleave(cs, dim=1)[None]
                 run(tsel, cols, gate)
-    return tuple(x.reshape(-1) for x in best)
+    t, tri, beta, gamma = (x.reshape(-1) for x in best)
+    shade = None
+    if shape.emit_shade:
+        shade = torch.where((t < _BIG)[None], inp.shade_pack[tri.long()].T, 0.0)
+    return t, tri, beta, gamma, shade
 
 
 # ---------------------------------------------------------------------------
@@ -459,7 +513,7 @@ def _load():
     if _Kernel.lib is None:
         lib = ctypes.CDLL(str(build_kernel()))
         fn = lib.mt_traverse_launch
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _Kernel.lib = lib
     return _Kernel.lib
@@ -500,6 +554,8 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
         ("s_mn", (n_super, 3), f32), ("s_mx", (n_super, 3), f32),
         ("s_order", (n_super,), i32), ("g_order", (n_groups,), i32),
         ("cand", (tiles, k_width), i32), ("meta", (tiles, 2), i32), ("bits", (tiles, k_width), i32),
+        ("ent", (tiles, k_width), i32),
+        ("shade_pack", (n_tris if shape.emit_shade else 0, 10), f32),
     ):
         _check(name, getattr(inp, name), dt, shp, dev)
     smem = 16 * max(shape.mt_group if shape.k_max else 1, 1) * cs * 4
@@ -509,27 +565,33 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
     out_tri = torch.empty(lanes, dtype=i32, device=dev)
     out_b = torch.empty(lanes, dtype=f32, device=dev)
     out_g = torch.empty(lanes, dtype=f32, device=dev)
+    out_shade = torch.empty((10, lanes) if shape.emit_shade else (0,), dtype=f32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mt_traverse_launch(
             *(x.data_ptr() for x in inp), out_t.data_ptr(), out_tri.data_ptr(),
-            out_b.data_ptr(), out_g.data_ptr(),
+            out_b.data_ptr(), out_g.data_ptr(), out_shade.data_ptr(),
             tiles, rt, n_tris, cp, cs, shape.group_size, shape.super_size,
             shape.sub_tiles, shape.k_max, k_width, shape.mt_group, int(shape.mt_tail),
-            smem, stream,
+            int(shape.mt_prune), int(shape.emit_shade), smem, stream,
         )
     if err != 0:
         raise RuntimeError(f"mt_traverse kernel launch failed: cudaError {err}")
     mt_traverse.launches += 1
-    return out_t, out_tri, out_b, out_g
+    for mode, on in (("K3", shape.mt_prune), ("K4", shape.emit_shade)):
+        mt_traverse.mode_launches[mode] += int(on)
+    return out_t, out_tri, out_b, out_g, out_shade if shape.emit_shade else None
 
 
 def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
-    """Phase 2: (t, tri, beta, gamma) per lane, t = 3e38 where no hit.
+    """Phase 2: (t, tri, beta, gamma, shade) per lane, t = 3e38 where no
+    hit; shade is [10, lanes] under ``shape.emit_shade``, else None.
 
-    CUDA tensors launch ``csrc/mt_traverse.cu`` (and count the launch in
-    ``mt_traverse.launches``); CPU tensors run ``mt_traverse_reference``.
+    CUDA tensors launch ``csrc/mt_traverse.cu`` and count the launch in
+    ``mt_traverse.launches`` (every launch) and ``mt_traverse.
+    mode_launches`` (launches with the K3 prune, with the K4 shade
+    epilogue); CPU tensors run ``mt_traverse_reference``.
     """
     kind = inp.origin.device.type
     if kind == "cuda":
@@ -540,6 +602,7 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
 
 
 mt_traverse.launches = 0
+mt_traverse.mode_launches = {"K3": 0, "K4": 0}
 
 
 def closest_hit_clustered(
@@ -568,6 +631,7 @@ def closest_hit_clustered(
     p1_super_k0: int | None = None,
     resident_cap: int = 0,
     emit_shade: bool = False,
+    shade_pack=None,  # [T, 10] winner shade rows, required by emit_shade
     traverse=None,  # phase-2 function; default mt_traverse
 ) -> HitResult:
     """Closest valid triangle per ray via clustered traversal (float32).
@@ -579,10 +643,15 @@ def closest_hit_clustered(
     from ``sort_origin``, lane padding to whole tiles, phase 1, phase 2.
     ``traverse`` swaps the phase-2 function (``mt_traverse_reference``
     runs the plain version on any device).
+
+    ``emit_shade`` returns ``HitResult.shade`` [10, L], the winner's row
+    of ``shade_pack`` (zeros where no triangle won).  The JAX kernel
+    carries those rows in a 32-row ``tri_pack`` for its DMA tiling; here
+    the pack keeps its 16 geometry rows and the kernel's epilogue reads
+    the winner's row of ``shade_pack`` from device memory.
     """
     for flag, name, roadmap in (
-        (mt_prune, "mt_prune=True", "K3"), (resident_cap > 0, "resident_cap>0", "K5"),
-        (emit_shade, "emit_shade=True", "K4"), (not mt_union, "mt_union=False", "K6"),
+        (resident_cap > 0, "resident_cap>0", "B, K5"), (not mt_union, "mt_union=False", "B, K6"),
         (cand_order != "near", f"cand_order={cand_order!r}", "A.6"),
     ):
         if flag:
@@ -601,6 +670,9 @@ def closest_hit_clustered(
     c = t_total // cluster_size
     if aabb_mn.shape[0] != c or aabb_mx.shape[0] != c:
         raise ValueError(f"AABB rows ({aabb_mn.shape[0]}) != cluster count ({c})")
+    if emit_shade and (shade_pack is None or tuple(shade_pack.shape) != (t_total, 10)):
+        raise ValueError(f"emit_shade needs shade_pack [{t_total}, 10]; got "
+                         f"{None if shade_pack is None else tuple(shade_pack.shape)}")
     if mt_group not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"mt_group must be 1/2/4/8/16/32, got {mt_group}")
     if candidates > 0:
@@ -660,23 +732,29 @@ def closest_hit_clustered(
         tmin = torch.cat([tmin, torch.zeros(l_pad - l, dtype=f32, device=dev)])
     n_tiles = l_pad // rt
     if candidates > 0:
-        cand, meta, bits = _tile_candidates(
+        cand, meta, bits, ent = _tile_candidates(
             origin, direction, tmin, aabb_mn, aabb_mx, rt, sub_tiles, candidates,
-            p1_fanout, p1_super_k, p1_fanout0, p1_super_k0,
+            cand_order, p1_fanout, p1_super_k, p1_fanout0, p1_super_k0,
         )
     else:
         # sweep-only: dummy lists, the overflow flag sends every tile to the sweep
         cand = torch.zeros((n_tiles, 1), dtype=i32, device=dev)
         meta = torch.tensor([[0, 1]], dtype=i32, device=dev).repeat(n_tiles, 1)
         bits = torch.zeros((n_tiles, 1), dtype=i32, device=dev)
+        ent = torch.zeros((n_tiles, 1), dtype=i32, device=dev)
+    if emit_shade:
+        shade_pack = shade_pack.to(f32).contiguous()
+    else:
+        shade_pack = torch.zeros((0, 10), dtype=f32, device=dev)
     inp = TraversalInputs(
         origin.contiguous(), direction.contiguous(), tmin.contiguous(),
         tri_pack.to(f32).contiguous(), aabb_mn.contiguous(), aabb_mx.contiguous(),
         g_mn.contiguous(), g_mx.contiguous(), s_mn.contiguous(), s_mx.contiguous(),
-        s_order.contiguous(), g_order.contiguous(), cand, meta, bits,
+        s_order.contiguous(), g_order.contiguous(), cand, meta, bits, ent, shade_pack,
     )
-    shape = TraversalShape(rt, cluster_size, gs, ss, sub_tiles, candidates, mt_group, mt_tail)
-    best_t, best_tri, best_b, best_g = (traverse or mt_traverse)(inp, shape)
+    shape = TraversalShape(rt, cluster_size, gs, ss, sub_tiles, candidates, mt_group, mt_tail,
+                           bool(mt_prune and candidates > 0), bool(emit_shade))
+    best_t, best_tri, best_b, best_g, shade = (traverse or mt_traverse)(inp, shape)
     best_t = best_t[:l]
     found = best_t < RT_DEFAULT_MAX
     return HitResult(
@@ -685,4 +763,5 @@ def closest_hit_clustered(
         beta=best_b[:l],
         gamma=best_g[:l],
         found=found,
+        shade=None if shade is None else shade[:, :l],
     )

@@ -17,7 +17,8 @@ import torch
 from rts_tpu_torch.accel.cluster import cluster_reorder
 from rts_tpu_torch.config import Parameters
 from rts_tpu_torch.engine.animate import attitude_rotations, scene_base, target_motion
-from rts_tpu_torch.engine.cpi import CpiResult, CpiSpec, PulseBatch, trace_cpi
+from rts_tpu_torch.core.rotation import rot_axis_reversed, rot_z
+from rts_tpu_torch.engine.cpi import CpiResult, CpiSpec, PulseBatch, RefineExtras, trace_cpi
 from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
 from rts_tpu_torch.geometry.scene import compile_scene
 from rts_tpu_torch.physics.receiver_geom import rx_sphere_geometry
@@ -26,9 +27,8 @@ from rts_tpu_torch.sim.waveform import TransmitterPulse
 from rts_tpu_torch.sim.world import World
 
 # Named option bundles, value for value those of rts_tpu.sim.cpi.PRESETS.
-# "production" is the JAX package's measured-best TPU configuration; it
-# sets refine=True, which the port refuses until the native-f64 replay
-# lands (ROADMAP A.7): pass refine=False explicitly.
+# "production" is the JAX package's measured-best TPU configuration, with
+# the precision replay on (refine=True: here in native float64).
 PRESETS = {
     "production": dict(
         accel="cluster",
@@ -81,7 +81,6 @@ _PREPARE_DEFAULTS = dict(
 _NOT_PORTED = {
     "strict_parity": (False, "the f64 parity engine (ROADMAP A.3)"),
     "accel": ("cluster", "the brute-force intersector (ROADMAP A.3)"),
-    "refine": (False, "the precision replay (ROADMAP A.7)"),
     "rx_geom_on_device": (False, "on-device receiver geometry (ROADMAP A.8)"),
     "fan_order": ("raster", "Morton fan tiling (ROADMAP A.6)"),
 }
@@ -103,9 +102,14 @@ def prepare_cpi(
     keyword options override the preset.  ``device`` is where every
     tensor is created.  Configurations the port cannot run yet raise
     ``NotImplementedError`` naming the ROADMAP item: anything but
-    ``accel="cluster"``, ``refine=True`` (so ``preset="production"``
-    needs ``refine=False``), refraction (``max_refr_depth > 0``), and the
-    traversal options listed in ``ops.cluster_trace``."""
+    ``accel="cluster"``, refraction (``max_refr_depth > 0``), and the
+    traversal options listed in ``ops.cluster_trace``.
+
+    ``refine=True`` (the production preset) also builds the float64 state
+    of the precision replay: f64 copies of the base corners, normals and
+    reflection coefficients (``SceneBase.*_f64``) and the per-pulse
+    ``RefineExtras`` (rotations, centres, velocities, Tx origin, receiver
+    centres and radii, fan rotation and boresight), all f64 tensors."""
     opts = dict(_PREPARE_DEFAULTS)
     if preset is not None:
         if preset not in PRESETS:
@@ -152,7 +156,7 @@ def prepare_cpi(
         pad_to=opts["pad_tris_to"],
     )
     scene = cluster_reorder(scene, cluster_size=cluster_size)
-    base = scene_base(scene, cluster_size, dtype=dtype, device=device)
+    base = scene_base(scene, cluster_size, dtype=dtype, device=device, with_f64=opts["refine"])
 
     # per-pulse transforms and tx/rx geometry, vectorised over pulses
     rot = attitude_rotations(world.targets, times, params.start_time)
@@ -182,10 +186,23 @@ def prepare_cpi(
         geo = [np.zeros((pulse_count, 0, 3))] + [np.zeros((pulse_count, 0))] * 5
 
     t = lambda a: torch.as_tensor(np.array(a, np.float64), dtype=dtype, device=device)
+    extras = None
+    if opts["refine"]:
+        # per-pulse fan rotation r1 @ rz in f64 (engine/fan.py), vectorised
+        # over the pulse axis, and the boresight of a one-ray fan
+        az, el = txd[:, 0].astype(np.float64), txd[:, 1].astype(np.float64)
+        rz = rot_z(az, xp=np)  # [P, 3, 3]
+        orth = rz[:, :, 1] / np.linalg.norm(rz[:, :, 1], axis=-1, keepdims=True)
+        fan_rot = rot_axis_reversed(orth, el, xp=np) @ rz
+        bore = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], axis=-1)
+        t64 = lambda a: torch.as_tensor(np.array(a, np.float64), device=device)
+        extras = RefineExtras(rot=t64(rot), pos=t64(pos), vel=t64(vel), tx_origin=t64(txo),
+                              rx_centre=t64(geo[0]), rx_radius=t64(geo[1]),
+                              fan_rot=t64(fan_rot), bore=t64(bore))
     batch = PulseBatch(
         rot=t(rot), pos=t(pos), vel=t(vel),
         rx_geom=RxGeomDevice(*(t(a) for a in geo)),
-        rx_pos=t(rx_pos), tx_origin=t(txo), tx_dir=t(txd), times=t(times),
+        rx_pos=t(rx_pos), tx_origin=t(txo), tx_dir=t(txd), times=t(times), refine=extras,
     )
     cfg = TraceConfig.from_parameters(
         params,
@@ -213,15 +230,16 @@ def prepare_cpi(
 
 def check_replay_overflow(out: CpiResult, cfg: TraceConfig, *, warn: bool = True):
     """Per-pulse received-lane counts ([P] int array); warns when a pulse
-    received more lanes than ``cfg.replay_cap`` under ``cfg.refine`` (the
-    replay's precision contract would not hold for the excess lanes)."""
+    received more lanes than ``cfg.replay_cap`` under ``cfg.refine``:
+    lanes beyond the cap keep f32 values and break the 1e-6 power/phase
+    contract.  ``run_cpi`` calls it on every trace."""
     counts = (out.received >= 0).sum(dim=1).cpu().numpy()
     if cfg.refine and cfg.replay_cap and counts.size:
         worst = int(counts.max())
         if worst > cfg.replay_cap and warn:
             over = int((counts > cfg.replay_cap).sum())
             warnings.warn(
-                f"ds replay cap overflow: {over} pulse(s) received more lanes than "
+                f"replay cap overflow: {over} pulse(s) received more lanes than "
                 f"replay_cap={cfg.replay_cap} (worst {worst})",
                 UserWarning, stacklevel=2,
             )
@@ -256,7 +274,7 @@ def run_cpi(
         host = lambda a: a.cpu().numpy()
         emit, received = host(out.agg.emit), host(out.received)
         power, doppler, delay = host(out.agg.power), host(out.agg.doppler), host(out.agg.delay)
-        phase = host(out.agg.phase).astype(np.float64)
+        phase = host(out.agg.phase).astype(np.float64) + host(out.agg.phase_lo).astype(np.float64)
         times = host(batch.times)
         for p in range(emit.shape[0]):
             for i in np.flatnonzero(emit[p]):

@@ -32,8 +32,7 @@ from rts_tpu.engine.cpi import map_pulses
 import rts_tpu_torch.sim as ts
 from rts_tpu_torch import Parameters as TParameters
 from rts_tpu_torch import convert
-from rts_tpu_torch.engine.cpi import make_pulse_fn, trace_cpi
-from rts_tpu_torch.engine.types import RxGeomDevice
+from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
 from rts_tpu_torch.sim import check_replay_overflow
 
 torch.set_num_threads(1)
@@ -85,10 +84,7 @@ def _t_trace(base, batch, cfg, spec):
     one_pulse, aggregate = make_pulse_fn(base, cfg, spec)
     outs, paths = [], []
     for p in range(batch.times.shape[0]):
-        res, power, doppler, delay = one_pulse(
-            batch.rot[p], batch.pos[p], batch.vel[p], RxGeomDevice(*(a[p] for a in batch.rx_geom)),
-            batch.rx_pos[p], batch.tx_origin[p], batch.tx_dir[p], batch.times[p],
-        )
+        res, power, doppler, delay = one_pulse(*pulse_args(batch, p))
         outs.append(aggregate(res, power, doppler, delay))
         paths.append(res.path)
     return outs, torch.stack(paths)
@@ -106,7 +102,8 @@ def test_slice_matches_rts_tpu(world, num_rays):
     # the port's own front end builds the same state from its own World
     tb, tbat, tcfg, _ = ts.prepare_cpi(world(ts), TParameters(num_rays=num_rays, max_refl_depth=2), **kw)
     assert tcfg == dataclasses.replace(cfg, interpret=False)  # the Pallas interpreter flag
-    assert all(torch.equal(a, b) for a, b in zip(tb, base))
+    assert all(torch.equal(a, b) for a, b in zip(tb, base) if a is not None)
+    assert tb.tri_verts_f64 is None and base.tri_verts_f64 is None  # refine=False: no f64 state
     assert all(torch.equal(a, b) for a, b in zip(tbat, batch) if torch.is_tensor(a))
     assert all(torch.equal(a, b) for a, b in zip(tbat.rx_geom, batch.rx_geom))
 

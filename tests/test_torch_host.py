@@ -120,30 +120,47 @@ def make_world(S, pulses=3):
     return w
 
 
-def test_prepare_cpi_state_equal_and_convert():
+@pytest.mark.parametrize("refine", [False, True], ids=["f32", "refine"])
+def test_prepare_cpi_state_equal_and_convert(refine):
     """The host arrays of prepare_cpi (scene, rot/pos/vel, rx geometry,
     times, tx geometry) and the config equal rts_tpu's, and convert.py
-    carries rts_tpu's state over to the same tensors."""
-    kw = dict(preset="production", refine=False, cluster_size=128, ray_tile=128)
+    carries rts_tpu's state over to the same tensors.  With refine=True
+    the port's float64 replay state equals rts_tpu's double-single pairs
+    (hi + lo) to the ds residual's own rounding, ~2^-48 relative."""
+    kw = dict(preset="production", refine=refine, cluster_size=128, ray_tile=128)
     jb, jbat, jcfg, jspec = js.prepare_cpi(make_world(js), JParameters(num_rays=5, max_refl_depth=2),
                                            dtype=jnp.float32, **kw)
     tb, tbat, tcfg, tspec = ts.prepare_cpi(make_world(ts), TParameters(num_rays=5, max_refl_depth=2), **kw)
     for name, t in tb._asdict().items():
-        np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jb, name)), err_msg=name)
+        if not name.endswith("_f64"):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jb, name)), err_msg=name)
     for name, t in tbat._asdict().items():
         if name == "rx_geom":
             for g, tg in t._asdict().items():
                 np.testing.assert_array_equal(tg.numpy(), np.asarray(getattr(jbat.rx_geom, g)), err_msg=g)
-        else:
+        elif name != "refine":
             np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jbat, name)), err_msg=name)
     assert not np.allclose(tbat.rot.numpy()[1:], np.eye(3))  # the rotation is exercised
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert convert.trace_config(jcfg) == tcfg
     cb = convert.scene_base(jb)
-    assert all(torch.equal(a, b) for a, b in zip(cb, tb))
     cbat = convert.pulse_batch(jbat)
+    f64 = [f for f in tb._fields if f.endswith("_f64")]
+    assert all(torch.equal(getattr(cb, f), getattr(tb, f)) for f in tb._fields if f not in f64)
     assert all(torch.equal(a, b) for a, b in zip(cbat.rx_geom, tbat.rx_geom))
     assert all(torch.equal(a, b) for a, b in zip(cbat, tbat) if torch.is_tensor(a))
+    if not refine:
+        assert tbat.refine is None and cbat.refine is None
+        assert all(getattr(tb, f) is None and getattr(cb, f) is None for f in f64)
+        return
+    pairs = [(getattr(cb, f), getattr(tb, f)) for f in f64] + list(zip(cbat.refine, tbat.refine))
+    assert len(pairs) == 3 + 8
+    for name, (a, b) in zip(f64 + list(tbat.refine._fields), pairs):
+        assert a.dtype == b.dtype == torch.float64, name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13, atol=1e-13, err_msg=name)
+    # the f32 state is the f64 state rounded
+    np.testing.assert_array_equal(tb.tri_verts.numpy(), tb.tri_verts_f64.numpy().astype(np.float32))
+    np.testing.assert_array_equal(tbat.pos.numpy(), tbat.refine.pos.numpy().astype(np.float32))
     cspec = convert.cpi_spec(jspec)
     assert cspec._replace(rx_rotation_fns=()) == tspec._replace(rx_rotation_fns=())
     t = torch.linspace(0.0, 0.01, 5)
@@ -155,13 +172,13 @@ def test_prepare_cpi_state_equal_and_convert():
 @pytest.mark.parametrize(
     "options",
     [
-        dict(preset="production"),  # refine=True from the preset
-        dict(preset="production", refine=False, refraction=True),
+        dict(preset="production", rx_geom_on_device=True),
+        dict(preset="production", refraction=True),
         dict(accel="brute"),
-        dict(preset="production", refine=False, strict_parity=True),
-        dict(preset="production", refine=False, fan_order="morton2"),
+        dict(preset="production", strict_parity=True),
+        dict(preset="production", fan_order="morton2"),
     ],
-    ids=["refine", "refraction", "brute", "strict_parity", "fan_order"],
+    ids=["rx_geom_on_device", "refraction", "brute", "strict_parity", "fan_order"],
 )
 def test_prepare_cpi_refuses_unported(options):
     options = dict(options)

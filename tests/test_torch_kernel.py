@@ -1,4 +1,5 @@
-"""The traversal's CUDA kernel against its plain PyTorch version, on the card.
+"""The traversal's CUDA kernel against its plain PyTorch version, on the card
+(modes K1/K2, the K3 prune and the K4 shade emit).
 
 Marked ``gpu``: skips where there is no CUDA card.  This file imports
 neither jax nor rts_tpu, so it also runs on a machine without them:
@@ -38,14 +39,23 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _scene(device):
-    mesh, _ = sphere_mesh(3, 50.0)
+def _scene(device, subdiv=3):
+    mesh, _ = sphere_mesh(subdiv, 50.0)
     plate = rect_mesh(2.0, 150.0, 150.0).translated([300.0, 100.0, 0.0])
     scene = compile_scene([mesh.translated([900.0, 0.0, 0.0]), plate], [0.9, 0.7], [1.0, 1.0])
     base = scene_base(cluster_reorder(scene, cluster_size=CS), CS, device=device)
     eye = torch.eye(3, device=device).expand(2, 3, 3)
     zero = torch.zeros((2, 3), device=device)
     return animate_packed(base, eye, zero, zero)
+
+
+def _silhouette_rays(device, l=3 * RT, seed=3):
+    """Rays from the origin into the sphere's silhouette (front faces hit
+    first, so the mt_prune gate skips the back-face windows)."""
+    rng = np.random.default_rng(seed)
+    d = np.stack([np.ones(l), rng.uniform(-0.04, 0.04, l), rng.uniform(-0.04, 0.04, l)]).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(np.zeros((3, l), np.float32)), t(d), t(np.full(l, 0.005, np.float32))
 
 
 def _rays(device, l=3 * RT, seed=0):
@@ -79,3 +89,51 @@ def test_cuda_kernel_matches_plain(cuda_device, mode):
     for name in ("found", "tri", "t", "beta", "gamma"):
         a, b = getattr(got, name), getattr(ref, name)
         assert torch.equal(a, b), (mode, name, (a != b).sum().item())
+
+
+_FIELDS = ("found", "tri", "t", "beta", "gamma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [1, 4])
+def test_cuda_kernel_prune_matches_plain(cuda_device, group):
+    """K3: the kernel with mt_prune equals the plain version with it, and
+    the kernel without it, bit for bit."""
+    sc = _scene(cuda_device, subdiv=4)
+    args = (*_silhouette_rays(cuda_device), sc.tri_pack, sc.aabb_mn, sc.aabb_mx,
+            torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, candidates=48,
+              mt_group=group, mt_tail=True, sub_tiles=8 if group > 1 else 4)
+    before = TCT.mt_traverse.mode_launches["K3"]
+    got = closest_hit_clustered(*args, mt_prune=True, **kw)
+    torch.cuda.synchronize()
+    assert TCT.mt_traverse.mode_launches["K3"] == before + 1
+    ref = closest_hit_clustered(*args, mt_prune=True, traverse=mt_traverse_reference, **kw)
+    off = closest_hit_clustered(*args, **kw)
+    assert int(ref.found.sum()) > 300
+    for name in _FIELDS:
+        for other, what in ((ref, "plain"), (off, "no prune")):
+            a, b = getattr(got, name), getattr(other, name)
+            assert torch.equal(a, b), (what, name, (a != b).sum().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["candidates_g8_tail", "sweep_only"])
+def test_cuda_kernel_shade_matches_plain(cuda_device, mode):
+    """K4: the kernel's emitted shade rows equal the plain gather bit for
+    bit, and the hit is the one without the emit."""
+    sc = _scene(cuda_device)
+    o, d, tmin = _rays(cuda_device)
+    args = (o, d, tmin, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, **_MODES[mode])
+    before = TCT.mt_traverse.mode_launches["K4"]
+    got = closest_hit_clustered(*args, emit_shade=True, shade_pack=sc.shade_pack, **kw)
+    torch.cuda.synchronize()
+    assert TCT.mt_traverse.mode_launches["K4"] == before + 1
+    ref = closest_hit_clustered(*args, emit_shade=True, shade_pack=sc.shade_pack,
+                                traverse=mt_traverse_reference, **kw)
+    off = closest_hit_clustered(*args, **kw)
+    assert off.shade is None and int(ref.found.sum()) > 60
+    assert torch.equal(got.shade.view(torch.int32), ref.shade.view(torch.int32))
+    for name in _FIELDS:
+        assert torch.equal(getattr(got, name), getattr(off, name)), name

@@ -1,15 +1,19 @@
 """The port's clustered traversal against rts_tpu's (Pallas in interpret mode).
 
-Phase 1 (``_tile_candidates``) must be bit-identical: it is compares,
-min/max and one multiply per slab, with no operation whose rounding the
-two frameworks could order differently.  Phase 2 (the MT traversal) must
+Phase 1 (``_tile_candidates``: candidate lists, counts, sub-block bits
+and the mt_prune entry table) must be bit-identical: it is compares,
+min/max, one multiply per slab and a floor, with no operation whose
+rounding the two frameworks could order differently.  Phase 2 (the MT
+traversal, with and without the mt_prune window prune) must
 find the same triangles (``tri``/``found`` identical).  Its t, beta and
 gamma are held to a few ulps, not bit equality, because XLA's CPU backend
 contracts a*b + c into fused multiply-adds (the port, like the CUDA
 kernel, rounds every product), and beta/gamma are differences of nearly
 equal dot products at ~1 km, which amplifies a one-ulp change of an
 operand: t is held to rtol 4e-6 (~32 ulp) and beta/gamma to an absolute
-2e-5 of their [0, 1] range.
+2e-5 of their [0, 1] range.  The prune is exact, so the port with it
+equals the port without it bit for bit; the emitted shade rows are exact
+copies of the shade table, so they equal rts_tpu's bit for bit.
 """
 
 import jax.numpy as jnp
@@ -56,22 +60,27 @@ def _random_rays_c(rng, l, spread=350.0):
     return o, d, tmin
 
 
+_P1_OUT = ("cand", "meta", "bits", "ent")
+
+
 def _both_candidates(o, d, tmin, lo, hi, rt, st, k, **kw):
     j = JCT._tile_candidates(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
-                             jnp.asarray(lo), jnp.asarray(hi), rt, st, k, **kw)[:3]
+                             jnp.asarray(lo), jnp.asarray(hi), rt, st, k, **kw)
     t = TCT._tile_candidates(_t(o), _t(d), _t(tmin), _t(lo), _t(hi), rt, st, k, **kw)
     return [np.asarray(a) for a in j], [a.numpy() for a in t]
 
 
 @pytest.mark.parametrize(
     "case",
-    ["dense", "list_padding", "narrow_list", "overflow", "sentinels"],
+    ["dense", "list_padding", "narrow_list", "overflow", "sentinels", "mask_order", "chunked"],
 )
-def test_phase1_bit_identical(case):
-    """cand/meta/bits equal rts_tpu's, element for element, on random
-    boxes and rays (axis-aligned, dead and boxed-in lanes included)."""
+def test_phase1_bit_identical(case, monkeypatch):
+    """cand/meta/bits/ent equal rts_tpu's, element for element, on random
+    boxes and rays (axis-aligned, dead and boxed-in lanes included), with
+    the mask candidate order and with level 2 run in chunks of tiles."""
     rng = np.random.default_rng({"dense": 1, "list_padding": 2, "narrow_list": 3,
-                                 "overflow": 4, "sentinels": 5}[case])
+                                 "overflow": 4, "sentinels": 5, "mask_order": 6,
+                                 "chunked": 7}[case])
     c = 96
     lo, hi = _random_boxes(rng, c)
     if case == "sentinels":
@@ -86,12 +95,18 @@ def test_phase1_bit_identical(case):
         kw = dict(p1_fanout=4, p1_super_k=3)  # k_eff = 12 < k_max: zero-padded tail
     elif case == "overflow":
         kw = dict(p1_fanout=4, p1_super_k=2)  # admission cap far below the overlaps
+    elif case == "mask_order":
+        kw["cand_order"] = "mask"
+    elif case == "chunked":
+        monkeypatch.setattr(TCT, "_P1_CHUNK_ELEMS", 64 * 96)  # one tile per chunk
     j, t = _both_candidates(o, d, tmin, lo, hi, 64, 4, k, **kw)
     if case == "overflow":
         assert j[1][:, 1].any()
     else:
         assert j[1][:, 0].max() > 2
-    for a, b, name in zip(j, t, ("cand", "meta", "bits")):
+    # padding slots hold 2**30 and real entries are floored 1/16 m units
+    assert (j[3] == 2**30).any() and (j[3] < 2**30).any()
+    for a, b, name in zip(j, t, _P1_OUT):
         np.testing.assert_array_equal(b, a, err_msg=name)
 
 
@@ -109,18 +124,24 @@ def test_phase1_level0_bit_identical(monkeypatch):
         assert j[1][:, 0].max() > 2
         if k0 == 1:
             assert j[1][:, 1].any()
-        for a, b, name in zip(j, t, ("cand", "meta", "bits")):
+        for a, b, name in zip(j, t, _P1_OUT):
             np.testing.assert_array_equal(b, a, err_msg=f"{name} k0={k0}")
 
 
-def _scene():
-    mesh, _ = sphere_mesh(3, 50.0)
+def _scene(with_shade=False, subdiv=3):
+    """A closed sphere shell (its back faces occluded by its front faces)
+    and a plate; with ``with_shade`` also the [T, 10] shade table."""
+    mesh, _ = sphere_mesh(subdiv, 50.0)
     plate = rect_mesh(2.0, 150.0, 150.0).translated([300.0, 100.0, 0.0])
     scene = compile_scene([mesh.translated([900.0, 0.0, 0.0]), plate], [0.9, 0.7], [1.0, 1.0])
     dev = scene_to_device(j_cluster_reorder(scene, cluster_size=CS), dtype=jnp.float32)
     mn, mx = j_cluster_aabbs(dev.tri_p0, dev.tri_e0, dev.tri_e1, CS, xp=jnp)
     pack = pack_tri_fields(dev.tri_n, dev.tri_c1, dev.tri_c0, dev.tri_e1, dev.tri_e0, dev.tri_np0)
-    return pack, mn, mx
+    if not with_shade:
+        return pack, mn, mx
+    shade = jnp.concatenate([dev.tri_corner_normals.reshape(-1, 9),
+                             dev.tri_target.astype(jnp.float32)[:, None]], axis=1)
+    return pack, mn, mx, shade
 
 
 def _rays(l=3 * RT, seed=0):
@@ -168,20 +189,103 @@ def test_traversal_matches_rts_tpu(mode):
     if mode == "forced_overflow":
         # the overflow really sent tiles to the sweep
         lp = o.shape[1]
-        _, meta, _ = TCT._tile_candidates(_t(o), _t(d), _t(tmin), _t(mn), _t(mx), RT, 4, 16, p1_fanout=2,
-                                          p1_super_k=1)
+        _, meta, _, _ = TCT._tile_candidates(_t(o), _t(d), _t(tmin), _t(mn), _t(mx), RT, 4, 16,
+                                             p1_fanout=2, p1_super_k=1)
         assert meta[:, 1].any() and lp % RT == 0
+
+
+_PRUNE_MODES = {
+    # the moving scene's knobs: one cluster per window, no tail window
+    "g1": dict(candidates=48, mt_group=1, mt_tail=True, sub_tiles=4),
+    "g4_tail": dict(candidates=48, mt_group=4, mt_tail=True, sub_tiles=8),
+}
+
+
+def _count_evaluated(monkeypatch):
+    """Count the (ray, column) pairs the plain version's windows gate in."""
+    seen = [0]
+    inner = TCT._mt_window
+
+    def counting(o, d, m, tmin, f, gate, tri_ids, best):
+        seen[0] += int(torch.broadcast_to(gate, tmin.shape[:-1] + (f.shape[-1],)).sum())
+        return inner(o, d, m, tmin, f, gate, tri_ids, best)
+
+    monkeypatch.setattr(TCT, "_mt_window", counting)
+    return seen
+
+
+@pytest.mark.parametrize("mode", sorted(_PRUNE_MODES))
+def test_mt_prune_matches_rts_tpu(mode, monkeypatch):
+    """K3: the running-best window prune on a shell scene, against
+    rts_tpu's kernel with mt_prune=True (tri/found identical, t/beta/gamma
+    to the stated tolerances), and against the port without the prune,
+    bit for bit, while the prune really skips windows."""
+    pack, mn, mx = _scene(subdiv=4)  # 40 clusters: some lie wholly behind the front faces
+    # rays from the origin into the sphere's silhouette: front-face hits
+    # put every running best before the back-face clusters' entries
+    rng = np.random.default_rng(3)
+    l = 3 * RT
+    o = np.zeros((3, l), np.float32)
+    d = np.stack([np.ones(l), rng.uniform(-0.04, 0.04, l), rng.uniform(-0.04, 0.04, l)]).astype(np.float32)
+    tmin = np.full(l, 0.005, np.float32)
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, **_PRUNE_MODES[mode])
+    args = (_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx), torch.zeros(3))
+    ref = j_closest_hit(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), pack, mn, mx,
+                        jnp.zeros(3, jnp.float32), components=True, interpret=True,
+                        mt_prune=True, **kw)
+    seen = _count_evaluated(monkeypatch)
+    got = closest_hit_clustered(*args, mt_prune=True, **kw)
+    pruned = seen[0]
+    plain = closest_hit_clustered(*args, **kw)
+    assert pruned < seen[0] - pruned  # the gate fired: fewer pairs than without it
+    found = np.asarray(ref.found)
+    assert found.sum() > 60
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_array_equal(got.tri.numpy()[found], np.asarray(ref.tri)[found])
+    np.testing.assert_allclose(got.t.numpy()[found], np.asarray(ref.t)[found], rtol=T_RTOL)
+    for name in ("beta", "gamma"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[found],
+                                   np.asarray(getattr(ref, name))[found], rtol=0, atol=BARY_ATOL)
+    for name in ("t", "tri", "beta", "gamma", "found"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+
+
+@pytest.mark.parametrize("mode", ["candidates_g8_tail", "forced_overflow", "sweep_only"])
+def test_emit_shade_matches_rts_tpu(mode):
+    """K4: HitResult.shade is the winner's shade_pack row (zeros where no
+    triangle won), equal to rts_tpu's kernel-emitted rows, in candidate,
+    overflow-to-sweep and sweep-only tiles; the hit itself is unchanged."""
+    pack, mn, mx, shade = _scene(with_shade=True)
+    o, d, tmin = _rays()
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, **_MODES[mode])
+    pack32 = jnp.concatenate([pack, shade.T, jnp.zeros((6, pack.shape[1]), jnp.float32)])
+    ref = j_closest_hit(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), pack32, mn, mx,
+                        jnp.zeros(3, jnp.float32), components=True, interpret=True,
+                        emit_shade=True, **kw)
+    args = (_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx), torch.zeros(3))
+    got = closest_hit_clustered(*args, emit_shade=True, shade_pack=_t(shade), **kw)
+    plain = closest_hit_clustered(*args, **kw)
+    assert plain.shade is None and got.shade.shape == (10, o.shape[1])
+    for name in ("t", "tri", "beta", "gamma", "found"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+    found = got.found.numpy()
+    assert found.sum() > 60
+    np.testing.assert_array_equal(got.shade.numpy()[:, found], np.asarray(shade)[got.tri.numpy()[found]].T)
+    assert (got.shade.numpy()[:, ~found] == 0.0).all()
+    np.testing.assert_array_equal(got.shade.numpy(), np.asarray(ref.shade))
 
 
 @pytest.mark.parametrize(
     "option",
-    [dict(mt_prune=True), dict(resident_cap=8), dict(emit_shade=True),
-     dict(mt_union=False), dict(cand_order="mask")],
+    [dict(resident_cap=8), dict(mt_union=False), dict(cand_order="mask"),
+     dict(emit_shade=True)],
+    ids=["resident_cap", "mt_union_off", "mask_order", "emit_shade_without_table"],
 )
 def test_unported_options_raise(option):
     pack, mn, mx = _scene()
     o, d, tmin = _rays(l=RT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error = ValueError if "emit_shade" in option else NotImplementedError
+    with pytest.raises(error, match="shade_pack" if "emit_shade" in option else "ROADMAP"):
         closest_hit_clustered(_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx),
                               cluster_size=CS, ray_tile=RT, **option)
 
@@ -197,5 +301,6 @@ def test_cpu_tensors_take_the_plain_version():
     a = closest_hit_clustered(*args, **kw)
     b = closest_hit_clustered(*args, traverse=mt_traverse_reference, **kw)
     assert TCT.mt_traverse.launches == before
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    assert a.shade is None and b.shade is None
+    for name in ("t", "tri", "beta", "gamma", "found"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name

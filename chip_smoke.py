@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through their public entry points and
-fails with a non-zero exit at the first error: the production CPI of the
-1M-triangle terrain (BASELINE config 4) and the moving-shell CPI of four
-1.31M-triangle icospheres (BASELINE config 2, ``bench.py --scene moving``).
-There is no CPU fallback: without a CUDA card it exits non-zero before
-printing any result.
+Drives the port's main paths through their public entry points and fails
+with a non-zero exit at the first error: the production CPI of the
+1M-triangle terrain (BASELINE config 4), the same CPI with the
+traversal's live-cluster pack (K5, ``bench.py --resident-cap``) and with
+per-candidate windows (K6, ``--no-mt-union``), and the moving-shell CPI of
+four 1.31M-triangle icospheres (BASELINE config 2, ``bench.py --scene
+moving``).  There is no CPU fallback: without a CUDA card it exits
+non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
   1. build the traversal kernel (csrc/mt_traverse.cu) from source;
@@ -31,11 +33,36 @@ Phases (each line stamped with the card's name and power limit):
   d. one moving pulse with shade_emit=True against the gather: identical
      received lanes, path rows and emit; K4 launches counted;
   e. one moving pulse refined against unrefined: every decision identical;
-     the largest change in power and phase, and the replay's time.
+     the largest change in power and phase, and the replay's time;
+  f. terrain segment 1 with resident_cap=512 (K5): kernel against plain and
+     against phase 2's kernel, bit for bit; the live set and the swept
+     tiles; K1 and K5 timed in turns; then resident_cap=8, whose live set
+     overflows, so that every tile sweeps: bit-equal to the sweep-only
+     kernel, and to K1 up to exact t ties (the sweep visits the clusters in
+     another order, and a tie goes to the first visited);
+  g. terrain segment 1 with mt_union=False (K6) and with cand_order="mask":
+     each against plain; K6 bit-equal to phase 2, the mask order up to
+     exact t ties; K1 and K6 in turns;
+  h. moving segment 1 with mt_group=4, mt_union=False, mt_prune=True (K6
+     with the prune, at a window K1 cannot stage): against plain and
+     bit-equal to phase a;
+  i. the terrain CPI through prepare_cpi with resident_cap=512 and with
+     mt_union=False, 8 pulses each: bit-identical to phase 3, K5/K6
+     launches counted, no live-set overflow, a second run bit-identical.
+
+Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
+column) pairs the plain version evaluates and the distinct clusters whose
+columns they read.  Modes whose hits are bit-identical on the same inputs
+compute the same function (K1, K5 and K6 on terrain segment 1; K3, K4 and
+K6 + K3 on moving segment 1), so each of them gets the bound of the
+fewest pairs and clusters that any of them evaluated: its FP32 operations
+and the bytes it must move, the least time the card could take (the
+larger of the operations over the FP32 peak and the bytes over the memory
+rate), which of the two binds, and the kernel's share of it.
 
 The line before the card line is a JSON object with the kernel's modes,
-their launches in the main paths, errors and times; the last line is the
-JSON result.
+their launches in the main paths, errors, times and bounds; the last line
+is the JSON result.
 """
 
 from __future__ import annotations
@@ -65,6 +92,13 @@ DEVICE = "cuda"
 MOVING_KNOBS = dict(accel="cluster", cluster_size=1024, candidates=128, mt_group=1, p1_fanout=16,
                     p1_super_k=32, mt_prune=True, ray_tile=512, sub_tiles=8, mt_tail=True,
                     compact_narrow=-1, refine=True, replay_cap=256, agg_cap=1024)
+RESIDENT_CAP = 512  # K5's live pack: 512 x 128 x 16 x 4 B = 4.2 MB, room for every segment
+# The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
+# outside the tensor cores, and the HBM rate.
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+MT_OPS = 38  # per (ray, column): 37 multiplies, adds, subtracts and a reciprocal (mt_columns)
+SLAB_OPS = 22  # per (ray, box): 6 subtracts, 6 multiplies, 10 minima/maxima (slab)
 
 
 def card_line() -> str:
@@ -112,7 +146,7 @@ def moving_world(pulses: int):
     w.add(Transmitter(path=Path.fixed(0, 0, 0), wave=RadarSignal(carrier=10e9), pulse_count=pulses,
                       prf=1000.0, tx_span=(0.15, 0.15, 0.0)))
     w.add(Receiver(path=Path.fixed(0, 0, 0), sphere=(25.0, 1.2, 1.2)))
-    nodes = generate_fan_c(3, (0.0, 0.0), (0.15, 0.15, 0.0)).T.double().numpy()
+    nodes = generate_fan_c(3, (0.0, 0.0), (0.15, 0.15, 0.0), device="cpu").T.double().numpy()
     for node, rng, speed in ((12, 900.0, -50.0), (9, 1400.0, 80.0), (15, 2000.0, -140.0),
                              (3, 2600.0, 30.0)):
         d = nodes[node] / np.linalg.norm(nodes[node])
@@ -138,6 +172,75 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
+def in_turns(a, b, reps: int = 20):
+    """Times of two calls taken in turns in one process, a, b, b, a:
+    ((a1, a2), (b1, b2))."""
+    a1, b1, b2, a2 = (time_ms(fn, reps) for fn in (a, b, b, a))
+    return (a1, a2), (b1, b2)
+
+
+def plain_counted(fn, cs: int):
+    """fn() with the plain traversal's windows counted: (its result, the
+    (ray, column) pairs the windows gate in, the distinct clusters whose
+    columns they read)."""
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    pairs, ids = [], []
+    inner = CT._mt_window
+
+    def counting(o, d, m, tmin, f, gate, tri_ids, best):
+        g = torch.broadcast_to(gate, tmin.shape[:-1] + (f.shape[-1],))
+        pairs.append(g.sum())
+        ids.append(torch.where(g.any(1), tri_ids[:, 0] // cs, -1).reshape(-1))
+        return inner(o, d, m, tmin, f, gate, tri_ids, best)
+
+    CT._mt_window = counting
+    out = fn()
+    CT._mt_window = inner
+    clusters = torch.unique(torch.cat(ids)) if ids else torch.empty(0)
+    n_pairs = int(torch.stack(pairs).sum()) if pairs else 0
+    return out, n_pairs, int((clusters >= 0).sum())
+
+
+def bound(inp, shape, stats, pairs: int, clusters: int) -> dict:
+    """The least time the card could take for one traversal call that
+    evaluates ``pairs`` (ray, column) pairs over ``clusters`` distinct
+    clusters: the larger of its FP32 operations over the FP32 peak and the
+    bytes it must move over the memory rate.  Operations: MT_OPS per pair,
+    and on swept tiles SLAB_OPS per ray and tested box (every supergroup
+    box, then the cluster boxes of each visited group: super_size 1).
+    Bytes: the rays, the clusters' pack columns, the candidate lists and
+    outputs, each once (and the boxes when a tile sweeps)."""
+    lanes = inp.origin.shape[1]
+    rt, cs = shape.ray_tile, shape.cluster_size
+    tiles = lanes // rt
+    swept = (inp.meta[:, 1] != 0) if shape.k_max > 0 else torch.ones(tiles, dtype=torch.bool,
+                                                                       device=inp.meta.device)
+    n_swept = int(swept.sum())
+    ops = MT_OPS * pairs
+    nbytes = 28 * lanes + clusters * cs * 16 * 4  # o, d, tmin; the pack columns read
+    nbytes += inp.cand.numel() * 4 * (3 if shape.mt_prune else 2) + inp.meta.numel() * 4
+    nbytes += inp.live_tab.numel() * 4 + (16 + (40 if shape.emit_shade else 0)) * lanes + tiles * 8
+    if n_swept:
+        if shape.super_size != 1:
+            raise ValueError("the sweep's box count is written for super_size == 1")
+        tests = n_swept * inp.s_mn.shape[0] + shape.group_size * int(stats[swept, 0].sum())
+        ops += SLAB_OPS * rt * tests
+        nbytes += (inp.mn.shape[0] + inp.g_mn.shape[0] + inp.s_mn.shape[0]) * 24
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return {"ops": ops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def entry(name: str, replaces: str, launches: int, r: dict) -> dict:
+    """One kernel mode's object of the kernels JSON line."""
+    return {"name": name, "route": "cuda", "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
+            "replaces": f"rts_tpu/ops/cluster_trace.py:{replaces}", "launches": launches,
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "pairs": r["pairs"], "bound_pairs": r["bound_pairs"]}
+
+
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype.is_floating_point:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -156,6 +259,24 @@ def compare_hits(got, ref, what: str, against: str = "the plain version") -> flo
         if not bit_equal(a, b):
             raise AssertionError(f"{what}: {name} not bit-equal to {against} (max abs err {err})")
     return err
+
+
+def compare_ties(got, ref, what: str, against: str) -> int:
+    """Hits of two traversals that visit the clusters in different orders:
+    found identical and t bit-equal on every lane; tri/beta/gamma bit-equal
+    except on lanes that name another triangle at the same distance (an
+    exact tie, e.g. a ray through an edge two triangles share, which the
+    visit order breaks).  Returns the number of tie lanes."""
+    if not torch.equal(got.found, ref.found):
+        raise AssertionError(f"{what}: found differs from {against}")
+    f = ref.found
+    if not bit_equal(got.t[f], ref.t[f]):
+        raise AssertionError(f"{what}: t not bit-equal to {against}")
+    same = f & (got.tri == ref.tri)
+    for name in ("beta", "gamma"):
+        if not bit_equal(getattr(got, name)[same], getattr(ref, name)[same]):
+            raise AssertionError(f"{what}: {name} not bit-equal to {against} where tri agrees")
+    return int((f & ~same).sum())
 
 
 def same_result(a, b) -> bool:
@@ -183,7 +304,6 @@ def main() -> int:
     card = card_line()
     torch.manual_seed(0)
     params = Parameters(num_rays=NUM_RAYS, max_refl_depth=2)
-    kernels = []
 
     def reset_counts():
         CT.mt_traverse.launches = 0
@@ -218,40 +338,70 @@ def main() -> int:
                     f"{cfg.rays_per_fan} rays/pulse, {time.perf_counter() - t0:.2f} s")
         return state, scene, args, knobs
 
+    def captured(args, knobs):
+        """One kernel call of closest_hit_clustered: its hit, and the
+        phase-2 operands it launched the kernel on, (inp, shape)."""
+        calls = []
+
+        def keep(inp, shape):
+            calls.append((inp, shape))
+            return CT.mt_traverse(inp, shape)
+
+        return CT.closest_hit_clustered(*args, traverse=keep, **knobs), calls[0]
+
     def check(args, knobs, what, plain_reps=2):
-        """Kernel against plain on one segment; times of each version on
-        the same phase-1 lists (captured from the kernel's call)."""
-        got = CT.closest_hit_clustered(*args, **knobs)
-        ref = CT.closest_hit_clustered(*args, traverse=CT.mt_traverse_reference, **knobs)
+        """Kernel against plain on one segment (hits and work counters);
+        times of each version on the same phase-1 lists (captured from the
+        kernel's call), and the pairs and clusters the plain version
+        evaluated."""
+        got, stats = CT.closest_hit_clustered(*args, with_stats=True, **knobs)
+        (ref, ref_stats), pairs, clusters = plain_counted(
+            lambda: CT.closest_hit_clustered(*args, with_stats=True,
+                                             traverse=CT.mt_traverse_reference, **knobs),
+            knobs["cluster_size"])
         sync()
         err = compare_hits(got, ref, what)
         if knobs.get("emit_shade"):
             if not bit_equal(got.shade, ref.shade):
                 raise AssertionError(f"{what}: shade not bit-equal to the plain gather")
-        captured = []
-
-        def capture(inp, shape):
-            captured.append((inp, shape))
-            return CT.mt_traverse(inp, shape)
-
-        CT.closest_hit_clustered(*args, traverse=capture, **knobs)
-        inp, shape = captured[0]
+        if not torch.equal(stats, ref_stats):
+            raise AssertionError(f"{what}: work counters differ from the plain version's")
+        inp, shape = captured(args, knobs)[1]
         ms = time_ms(lambda: CT.mt_traverse(inp, shape), 20)
         plain_ms = time_ms(lambda: CT.mt_traverse_reference(inp, shape), plain_reps)
         stamp(card, f"{what}: {int(got.found.sum())} of {args[1].shape[1]} rays hit, "
                     f"{inp.meta.shape[0]} tiles ({int(inp.meta[:, 1].sum())} swept), tri/found "
-                    f"identical, t/beta/gamma{'/shade' if shape.emit_shade else ''} bit-equal; "
-                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
-        return got, err, ms, plain_ms, (inp, shape)
+                    f"identical, t/beta/gamma{'/shade' if shape.emit_shade else ''} and counters "
+                    f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call; the plain "
+                    f"version evaluated {pairs} pairs over {clusters} clusters")
+        return dict(hit=got, err=err, ms=ms, plain_ms=plain_ms, call=(inp, shape), stats=stats,
+                    pairs=pairs, clusters=clusters, what=what)
+
+    def bounds(rows):
+        """Give each of ``rows`` (modes whose hits are bit-identical on the
+        same inputs) the bound of the function they all compute: the fewest
+        pairs and clusters that any of them evaluated."""
+        pairs, clusters = min(r["pairs"] for r in rows), min(r["clusters"] for r in rows)
+        for r in rows:
+            inp, shape = r["call"]
+            b = bound(inp, shape, r["stats"], pairs, clusters)
+            r.update(b, bound_pairs=pairs)
+            stamp(card, f"{r['what']} bound: the fewest of {len(rows)} bit-identical modes, "
+                        f"{pairs} pairs over {clusters} clusters (this mode {r['pairs']}), "
+                        f"{b['ops'] / 1e9:.3f} GFLOP, {b['bytes'] / 1e6:.3f} MB; bound "
+                        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, the kernel at "
+                        f"{100 * b['bound_ms'] / r['ms']:.2f}% of it")
 
     (base, batch, cfg, spec), _, hit_args, knobs = segment1(terrain_world(PULSES, TRIS),
                                                             preset="production")
-    _, err, ms, plain_ms, _ = check(hit_args, knobs, "phase 2 terrain segment 1")
+    k1 = check(hit_args, knobs, "phase 2 terrain segment 1")
     # sweep mode: a small terrain with candidates=0 (every tile walks the
     # supergroup/group/cluster hierarchy)
     _, s_args, s_knobs = segment1(terrain_world(PULSES, SMALL_TRIS), preset="production",
                                   candidates=0)[1:]
-    err = max(err, check(s_args, s_knobs, "phase 2 sweep mode (candidates=0)")[1])
+    k2 = check(s_args, s_knobs, "phase 2 sweep mode (candidates=0)")
+    bounds([k2])
+    del s_args
 
     # ---- 3. terrain main path
     reset_counts()
@@ -283,10 +433,7 @@ def main() -> int:
                 f"received lanes, {int(out.agg.emit.sum())} emitted paths, {launches} kernel "
                 f"launches; {1e3 * best_s / P:.1f} ms/pulse, {P * R / best_s:.4g} rays/s "
                 f"(first run {first_s:.2f} s, second {second_s:.2f} s, bit-identical)")
-    kernels.append({"name": "mt_traverse K1/K2 (candidate windows, sweep)", "route": "cuda",
-                    "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
-                    "replaces": "rts_tpu/ops/cluster_trace.py:249", "launches": launches,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    terrain_ms_pulse = 1e3 * best_s / P
 
     # ---- 4. one terrain pulse through the plain traversal, against the kernel
     runs = []
@@ -303,11 +450,12 @@ def main() -> int:
             raise AssertionError(f"plain-traversal pulse differs in {name}")
     stamp(card, f"phase 4 plain-traversal pulse: received ({int((res_p.received >= 0).sum())} "
                 "lanes), path rows and emit identical to the kernel run")
-    del base, batch, out, again, runs, res_k, res_p, out_k, out_p
+    del base, batch, again, runs, res_k, res_p, out_k, out_p
 
     # ---- a. moving scene, segment 1, with the prune (K3)
     (mbase, mbatch, mcfg, mspec), mscene, m_args, m_knobs = segment1(moving_world(PULSES), **MOVING_KNOBS)
-    hit_p, err_p, ms_p, plain_ms_p, (inp, shape) = check(m_args, m_knobs, "phase a moving segment 1, mt_prune")
+    k3 = check(m_args, m_knobs, "phase a moving segment 1, mt_prune")
+    hit_p, (inp, shape) = k3["hit"], k3["call"]
     hit_np = CT.closest_hit_clustered(*m_args, **{**m_knobs, "mt_prune": False})
     sync()
     compare_hits(hit_p, hit_np, "phase a moving segment 1", against="the kernel without the prune")
@@ -317,9 +465,9 @@ def main() -> int:
 
     # ---- b. the same segment with the shade emit (K4)
     s_knobs = {**m_knobs, "emit_shade": True}
-    hit_s, err_s, ms_s, plain_ms_s, _ = check(m_args, {**s_knobs, "shade_pack": mscene.shade_pack},
-                                              "phase b moving segment 1, emit_shade")
-    compare_hits(hit_s, hit_p, "phase b moving segment 1", against="the run without the emit")
+    k4 = check(m_args, {**s_knobs, "shade_pack": mscene.shade_pack},
+               "phase b moving segment 1, emit_shade")
+    compare_hits(k4["hit"], hit_p, "phase b moving segment 1", against="the run without the emit")
 
     # ---- c. moving main path
     reset_counts()
@@ -358,10 +506,6 @@ def main() -> int:
                 f"({k3_launches} with the prune); {m_ms_pulse:.1f} ms/pulse, "
                 f"{P * R / best_s:.4g} rays/s (first run {first_s:.2f} s, second "
                 f"{second_s:.2f} s, bit-identical)")
-    kernels.append({"name": "mt_traverse K3 (mt_prune)", "route": "cuda",
-                    "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
-                    "replaces": "rts_tpu/ops/cluster_trace.py:557", "launches": k3_launches,
-                    "max_abs_err": err_p, "ms": ms_p, "plain_ms": plain_ms_p})
 
     # ---- d. one moving pulse with the shade emit against the gather
     args0 = pulse_args(mbatch, 0)
@@ -385,10 +529,6 @@ def main() -> int:
     stamp(card, f"phase d shade-emit pulse: {k4_launches} launches with the emit; received "
                 f"({int((res_s[0].received >= 0).sum())} lanes), path rows and emit identical to "
                 f"the gather; whole result bit-identical: {same_result(out_s, out_g)}")
-    kernels.append({"name": "mt_traverse K4 (emit_shade)", "route": "cuda",
-                    "source": "rts_tpu_torch/ops/csrc/mt_traverse.cu",
-                    "replaces": "rts_tpu/ops/cluster_trace.py:521", "launches": k4_launches,
-                    "max_abs_err": err_s, "ms": ms_s, "plain_ms": plain_ms_s})
 
     # ---- e. one moving pulse refined against unrefined
     one_u, agg_u = make_pulse_fn(mbase, dataclasses.replace(mcfg, refine=False), mspec)
@@ -412,6 +552,105 @@ def main() -> int:
                 f"power {d_power:.3e} (relative), phase {d_phase:.3e} rad; replay "
                 f"{replay_ms:.3f} ms per pulse, {100 * replay_ms / m_ms_pulse:.2f}% of the "
                 f"{m_ms_pulse:.1f} ms pulse")
+    del mbase, mbatch, mout, magain, res_s, res_g, res_u, out_s, out_g, out_u, args0
+
+    # ---- f. terrain segment 1 with the live pack (K5)
+    k1_call = k1["call"]
+    k5 = check(hit_args, {**knobs, "resident_cap": RESIDENT_CAP},
+               f"phase f terrain segment 1, resident_cap={RESIDENT_CAP} (K5)")
+    compare_hits(k5["hit"], k1["hit"], "phase f", against="phase 2's kernel (K1)")
+    k5_call = k5["call"]
+    swept = [int(c[0].meta[:, 1].sum()) for c in (k1_call, k5_call)]
+    if swept[0] != swept[1]:
+        raise AssertionError(f"phase f: {swept[1]} swept tiles, phase 2 had {swept[0]}")
+    n_live = torch.unique(k1_call[0].cand).numel()
+    (t1a, t1b), (t5a, t5b) = in_turns(lambda: CT.mt_traverse(*k1_call), lambda: CT.mt_traverse(*k5_call))
+    stamp(card, f"phase f: bit-equal to phase 2's kernel; live set {n_live} clusters of the cap "
+                f"{RESIDENT_CAP}, {swept[1]} swept tiles as in phase 2; in turns K1 {t1a:.3f} ms, "
+                f"K5 {t5a:.3f} ms, K5 {t5b:.3f} ms, K1 {t1b:.3f} ms per call")
+    hit8, call8 = captured(hit_args, {**knobs, "resident_cap": 8})
+    hit0 = CT.closest_hit_clustered(*hit_args, **{**knobs, "candidates": 0})
+    sync()
+    compare_hits(hit8, hit0, "phase f resident_cap=8", against="the sweep-only kernel (candidates=0)")
+    ties = compare_ties(hit8, k1["hit"], "phase f resident_cap=8", "phase 2's kernel (K1)")
+    swept8 = int(call8[0].meta[:, 1].sum())
+    if swept8 != call8[0].meta.shape[0]:
+        raise AssertionError(f"phase f resident_cap=8: {swept8} swept tiles, not every tile")
+    ms8 = time_ms(lambda: CT.mt_traverse(*call8), 3)
+    stamp(card, f"phase f resident_cap=8: the live set overflows, all {swept8} tiles sweep; "
+                f"bit-equal to the sweep-only kernel, and to K1 but for {ties} lanes of an exact "
+                f"t tie that the sweep's visit order breaks the other way; kernel {ms8:.3f} ms "
+                f"per call")
+    del call8, hit8, hit0
+
+    # ---- g. terrain segment 1 with per-candidate windows (K6), and the mask order
+    k6 = check(hit_args, {**knobs, "mt_union": False}, "phase g terrain segment 1, mt_union=False (K6)")
+    compare_hits(k6["hit"], k1["hit"], "phase g K6", against="phase 2's kernel (K1)")
+    km = check(hit_args, {**knobs, "cand_order": "mask"}, "phase g terrain segment 1, cand_order=mask")
+    mask_ties = compare_ties(km["hit"], k1["hit"], "phase g mask order", "phase 2's kernel (K1)")
+    (t1a, t1b), (t6a, t6b) = in_turns(lambda: CT.mt_traverse(*k1_call),
+                                      lambda: CT.mt_traverse(*k6["call"]))
+    stamp(card, f"phase g: K6 bit-equal to phase 2's kernel, the mask order too but for "
+                f"{mask_ties} lanes of an exact t tie broken the other way; in turns K1 "
+                f"{t1a:.3f} ms, K6 {t6a:.3f} ms, K6 {t6b:.3f} ms, K1 {t1b:.3f} ms per call; "
+                f"mask order {km['ms']:.3f} ms")
+    del km
+    bounds([k1, k5, k6])
+
+    # ---- h. moving segment 1: K6 with the prune, 4 clusters of 1,024 a window
+    k6p = check(m_args, {**m_knobs, "mt_group": 4, "mt_union": False, "mt_prune": True},
+                "phase h moving segment 1, mt_group=4, mt_union=False, mt_prune (K6 + K3)")
+    compare_hits(k6p["hit"], hit_p, "phase h", against="phase a's kernel (K3)")
+    stamp(card, f"phase h: bit-equal to phase a's kernel; K6 + K3 {k6p['ms']:.3f} ms against K3 "
+                f"{k3['ms']:.3f} ms per call (phase a)")
+    bounds([k3, k4, k6p])
+    del m_args, mscene, hit_p, hit_np, k6p, inp
+
+    # ---- i. the terrain CPI with the live pack (K5) and per-candidate windows (K6)
+    CT.mt_traverse.resident_overflows = torch.zeros((), dtype=torch.int32, device=dev)
+    mode_runs = {}
+    for mode, option in (("K5", dict(resident_cap=RESIDENT_CAP)), ("K6", dict(mt_union=False))):
+        t0 = time.perf_counter()
+        state = prepare_cpi(terrain_world(PULSES, TRIS), params, preset="production", device=dev,
+                            **option)
+        prep_s = time.perf_counter() - t0
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        first = trace_cpi(*state)
+        sync()
+        first_s = time.perf_counter() - t0
+        n_mode, n_all = CT.mt_traverse.mode_launches[mode], CT.mt_traverse.launches
+        if n_mode == 0:
+            raise AssertionError(f"the terrain CPI with {option} never launched mode {mode}")
+        if not same_result(first, out):
+            raise AssertionError(f"the terrain CPI with {option} differs from phase 3's")
+        t0 = time.perf_counter()
+        again = trace_cpi(*state)
+        sync()
+        second_s = time.perf_counter() - t0
+        if not same_result(again, first):
+            raise AssertionError(f"second terrain CPI with {option} differs: not deterministic")
+        best_s = min(first_s, second_s)
+        mode_runs[mode] = n_mode
+        stamp(card, f"phase i terrain main path with {option}: bit-identical to phase 3, {n_mode} "
+                    f"of {n_all} launches in mode {mode}; {1e3 * best_s / P:.1f} ms/pulse, "
+                    f"{P * R / best_s:.4g} rays/s (first run {first_s:.2f} s, second "
+                    f"{second_s:.2f} s, bit-identical; phase 3 {terrain_ms_pulse:.1f} ms/pulse; "
+                    f"prepare_cpi {prep_s:.2f} s)")
+        del state, first, again
+    overflows = int(CT.mt_traverse.resident_overflows)
+    if overflows:
+        raise AssertionError(f"{overflows} segments overflowed the live pack's cap {RESIDENT_CAP}")
+    stamp(card, f"phase i: no segment overflowed the live pack's cap {RESIDENT_CAP}")
+    kernels = [
+        entry("mt_traverse K1/K2 (candidate windows, sweep)", "249", launches,
+              {**k1, "err": max(k1["err"], k2["err"])}),
+        entry("mt_traverse K3 (mt_prune)", "557", k3_launches, k3),
+        entry("mt_traverse K4 (emit_shade)", "521", k4_launches, k4),
+        entry(f"mt_traverse K5 (resident live pack, cap {RESIDENT_CAP})", "398", mode_runs["K5"], k5),
+        entry("mt_traverse K6 (mt_union=False)", "710", mode_runs["K6"], k6),
+    ]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,7 +16,8 @@ never imports).  Module names mirror ``rts_tpu`` one to one:
   * ``aggregate`` — multipath coherent combining (stable sort + segment sums).
   * ``sim``       — World / Transmitter / Receiver / Target and ``prepare_cpi``.
 
-Tensors live on the device given to ``sim.prepare_cpi(..., device=...)``.
+Tensors live on the device given to ``sim.prepare_cpi(..., device=...)``,
+the card (``"cuda"``) unless the caller asks for the CPU.
 Nothing on the path has a gradient; callers run it under
 ``torch.no_grad()`` or not, it makes no difference to the values.
 """

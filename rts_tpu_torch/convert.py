@@ -1,7 +1,8 @@
 """Carry state from ``rts_tpu`` (the JAX reference) into this package.
 
 Each function takes the JAX package's object and returns the port's, with
-every array leaf read through ``np.asarray`` and placed on ``device``.
+every array leaf read through ``np.asarray`` and placed on ``device`` (the
+card unless the caller asks for another).
 Nothing here imports jax: the leaves are array-likes that NumPy reads.
 The tests use these to feed identical state to both packages.
 """
@@ -20,17 +21,17 @@ from rts_tpu_torch.physics import antenna, rcs
 from rts_tpu_torch.sim.paths import RotationPath
 
 
-def tensor(a, device="cpu", dtype=None):
+def tensor(a, device="cuda", dtype=None):
     """np.asarray(a) as a tensor on ``device`` (dtype kept unless given)."""
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def f64(hi, lo, device="cpu"):
+def f64(hi, lo, device="cuda"):
     """A double-single pair (f32 value + f32 residual) summed in float64."""
     return tensor(np.asarray(hi, np.float64) + np.asarray(lo, np.float64), device)
 
 
-def scene_base(jbase, device="cpu") -> SceneBase:
+def scene_base(jbase, device="cuda") -> SceneBase:
     """rts_tpu.engine.animate.SceneBase (built with cluster_size=...); its
     replay residuals (``with_lo=True``) become the port's f64 fields."""
     if jbase.cl_mn is None:
@@ -46,11 +47,11 @@ def scene_base(jbase, device="cpu") -> SceneBase:
     )
 
 
-def rx_geom(jrx, device="cpu") -> RxGeomDevice:
+def rx_geom(jrx, device="cuda") -> RxGeomDevice:
     return RxGeomDevice(*(tensor(getattr(jrx, f), device) for f in RxGeomDevice._fields))
 
 
-def refine_extras(jbatch, device="cpu") -> RefineExtras:
+def refine_extras(jbatch, device="cuda") -> RefineExtras:
     """The f64 replay state of an rts_tpu PulseBatch built with refine=True:
     each hi + lo pair of its ``RefineExtras`` summed in float64."""
     x = jbatch.refine
@@ -63,7 +64,7 @@ def refine_extras(jbatch, device="cpu") -> RefineExtras:
     )
 
 
-def pulse_batch(jbatch, device="cpu") -> PulseBatch:
+def pulse_batch(jbatch, device="cuda") -> PulseBatch:
     """rts_tpu.engine.cpi.PulseBatch, with its replay extras when it has them."""
     return PulseBatch(*(
         rx_geom(jbatch.rx_geom, device) if f == "rx_geom" else tensor(getattr(jbatch, f), device)

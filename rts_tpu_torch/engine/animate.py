@@ -59,12 +59,13 @@ class SceneBase(NamedTuple):
 
 
 def scene_base(
-    scene: SceneArrays, cluster_size: int, dtype=torch.float32, device="cpu",
+    scene: SceneArrays, cluster_size: int, dtype=torch.float32, device="cuda",
     with_f64: bool = False,
 ) -> SceneBase:
-    """Upload a cluster-reordered scene and build its per-cluster,
-    per-target base boxes (host NumPy, as in the JAX package); with
-    ``with_f64`` also the float64 copies the replay reads."""
+    """Upload a cluster-reordered scene to ``device`` (the card unless the
+    caller asks for another) and build its per-cluster, per-target base
+    boxes (host NumPy, as in the JAX package); with ``with_f64`` also the
+    float64 copies the replay reads."""
     tv = np.asarray(scene.tri_verts)
     # base boxes over the SAME dtype-rounded vertices the per-pulse pack
     # transform consumes, so the corner refit stays conservative

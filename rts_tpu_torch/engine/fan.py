@@ -16,14 +16,15 @@ from rts_tpu_torch.core.rotation import rot_axis_reversed, rot_z
 from rts_tpu_torch.core.vec import normalize3, normalize3c, sph_to_cart
 
 
-def generate_fan_c(num_rays: int, tx_dir, tx_span, dtype=torch.float32, device="cpu"):
+def generate_fan_c(num_rays: int, tx_dir, tx_span, dtype=torch.float32, device="cuda"):
     """Primary ray directions [3, N^3] (components-major).
 
     ``tx_dir`` = (azimuth, elevation) boresight (floats or 0-d tensors);
     ``tx_span`` = (azimuth span, elevation span, launch range).  The
     directions are the unnormalised double3-analogue the tracer
     propagates (ray_tracer.cu:203).  The rotations are applied as explicit
-    component products, in the same order as the JAX code.
+    component products, in the same order as the JAX code.  The fan is
+    built on ``device``, the card unless the caller asks for another.
     """
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
     az = as_t(tx_dir[0])

@@ -3,10 +3,9 @@
 
 ``TraceConfig`` has the same fields and derived properties as the JAX
 one, so a configuration converts one to one (``rts_tpu_torch.convert``).
-Options that only select TPU-specific variants of the same computation
-are kept as fields but refused by the code that would read them, with a
-pointer to ROADMAP (see ``ops.cluster_trace.closest_hit_clustered`` and
-``sim.cpi.prepare_cpi``).
+Options whose work is not ported yet are kept as fields but refused by
+the code that would read them, with a pointer to ROADMAP (see
+``sim.cpi.prepare_cpi`` and ``engine.wavefront.trace_fan``).
 """
 
 from __future__ import annotations
@@ -80,11 +79,11 @@ class TraceConfig:
     sub_tiles: int = 4  # ray sub-blocks per tile, gated by phase-1 bits
     candidates: int = 64  # phase-1 list width; 0 = sweep-only
     mt_group: int = 2  # candidates per MT window
-    mt_union: bool = True  # False (per-candidate windows): not ported
+    mt_union: bool = True  # False: one window per candidate (kernel mode K6)
     mt_tail: bool = False  # half-width tail window
     mt_prune: bool = False  # running-best window prune (kernel mode K3)
-    cand_order: str = "near"  # "mask": not ported
-    resident_cap: int = 0  # VMEM-resident live pack (TPU): not ported
+    cand_order: str = "near"  # "mask": window-mates grouped by sub-block bits
+    resident_cap: int = 0  # >0: windows read a compacted live-cluster pack (K5)
     p1_fanout: int | None = None
     p1_super_k: int | None = None
     p1_fanout0: int | None = None

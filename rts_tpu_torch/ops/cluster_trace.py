@@ -15,15 +15,17 @@ arrive components-major ([3, L]) and are processed in tiles of
 
   PHASE 2 (``mt_traverse``): per tile, Moller-Trumbore over the
   candidate windows (K1), optionally with the running-best window prune
-  (K3), or the hierarchical sweep for overflowed tiles (K2); optionally
-  the winner's shade row as an extra output (K4).  On a CUDA tensor it
-  launches the hand-written kernel ``csrc/mt_traverse.cu``; on a CPU
-  tensor it runs the plain PyTorch version ``mt_traverse_reference``.
+  (K3), one window per candidate (K6, ``mt_union=False``) and windows
+  read from a compacted live-cluster pack (K5, ``resident_cap``), or the
+  hierarchical sweep for overflowed tiles (K2); optionally the winner's
+  shade row as an extra output (K4); always the per-tile work counters.
+  On a CUDA tensor it launches the hand-written kernel
+  ``csrc/mt_traverse.cu``; on a CPU tensor it runs the plain PyTorch
+  version ``mt_traverse_reference``.
 
 The TPU-only machinery of the JAX module (SMEM row packing and grid
 chunking, the f32-encoded tri ids of the packed I/O, the ``RTS_*``
-experiment switches) has no counterpart.  Options that only exist there
-raise (ROADMAP queue B).
+experiment switches) has no counterpart.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ _P1_L0_MIN_S = 192
 # tile is independent, so chunking changes no bit, only peak memory.
 _P1_CHUNK_ELEMS = 1 << 25
 _ENT_PAD = 2**30  # entry-table value of padding slots (never loosens a window min)
+_LIVE_PACK_MAX = 12 * 1024 * 1024  # K5 live-pack limit, rts_tpu's VMEM budget
 
 
 def _top_k_indices(key, k: int):
@@ -255,6 +258,38 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     return order.contiguous(), meta.contiguous(), bits.contiguous(), entq.contiguous()
 
 
+def _live_set(cand, meta, tri_pack, cap, c, cs):
+    """K5's live-cluster pack, step for step as ``rts_tpu``'s resident
+    wrapper: the distinct clusters of every tile's list (overflow tiles'
+    lists and the zeros of empty tiles included), sorted, the first ``cap``
+    of them padded with 2**30; candidate ids remapped to their live slots;
+    every tile flagged for the sweep when more than ``cap`` are live.
+    Static shapes only (sort, first-occurrence mask, cumsum,
+    searchsorted), so it never reads the device from the host.
+
+    Returns (slots [tiles, K], meta, live_pack [16, cap * cs], live_tab
+    [cap]) and adds the overflow flag to ``mt_traverse.resident_overflows``.
+    """
+    dev = cand.device
+    i32 = torch.int32
+    s = torch.sort(cand.reshape(-1)).values
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), s[1:] != s[:-1]])
+    nlive = first.sum(dtype=i32)
+    rank = torch.cumsum(first, 0, dtype=i32)  # 1-based rank of each distinct id
+    jj = torch.arange(cap, dtype=i32, device=dev)
+    idx = torch.searchsorted(rank, jj + 1).clamp(max=s.numel() - 1)
+    live_sorted = torch.where(jj < nlive, s[idx], 2**30)
+    slots = torch.searchsorted(live_sorted, cand).clamp(0, cap - 1).to(i32)
+    ovf = (nlive > cap).to(i32)
+    meta = torch.stack([meta[:, 0], torch.maximum(meta[:, 1], ovf)], 1)
+    mt_traverse.resident_overflows = mt_traverse.resident_overflows.to(dev) + ovf
+    # candidates are real clusters (padding boxes never overlap): the 2**30
+    # tail clips to the last one
+    live_tab = live_sorted.clamp(0, c - 1)
+    cols = (live_tab[:, None] * cs + torch.arange(cs, dtype=i32, device=dev)).reshape(-1)
+    return slots.contiguous(), meta.contiguous(), tri_pack[:, cols.long()].contiguous(), live_tab
+
+
 class TraversalInputs(NamedTuple):
     """Phase-2 operands, shared by the CUDA kernel and its plain version.
     Lanes are padded to whole tiles; every float is f32, every id int32."""
@@ -276,6 +311,8 @@ class TraversalInputs(NamedTuple):
     bits: torch.Tensor  # [tiles, K]
     ent: torch.Tensor  # [tiles, K] entry distance, 1/16 m units (read under mt_prune)
     shade_pack: torch.Tensor  # [T, 10] winner shade rows (read under emit_shade), else [0, 10]
+    live_pack: torch.Tensor  # [16, resident_cap * cs] live clusters' columns (K5), else [16, 0]
+    live_tab: torch.Tensor  # [resident_cap] global cluster id of each live slot (K5), else [0]
 
 
 class TraversalShape(NamedTuple):
@@ -289,21 +326,13 @@ class TraversalShape(NamedTuple):
     mt_tail: bool
     mt_prune: bool = False  # K3: running-best window prune
     emit_shade: bool = False  # K4: winner's shade_pack row as a [10, lanes] output
-
-
-def _sweep_visit_order(inp: TraversalInputs, shape: TraversalShape):
-    """Cluster ids in the order the sweep visits them."""
-    if shape.super_size == 1:
-        groups = inp.s_order.long()
-    else:
-        groups = inp.g_order.long().reshape(-1, shape.super_size)[inp.s_order.long()].reshape(-1)
-    gs = shape.group_size
-    return (groups[:, None] * gs + torch.arange(gs, device=groups.device)).reshape(-1)
+    mt_union: bool = True  # False (K6): one window per candidate, gated by its own bits
+    resident_cap: int = 0  # K5: cand holds live slots; windows read live_pack
 
 
 def _slab_rays(o, d, tmin, alive, mn, mx, best):
     """The kernel's per-ray slab test (``_slab_overlap``) of rays [3, R]
-    against boxes [B, 3]: [R, B]."""
+    against boxes [B, 3] with running bests ``best`` [R, 1]: [R, B]."""
     o, d = o[..., None], d[..., None]
     inv = 1.0 / torch.where(d == 0.0, 1.0, d)
     tn = tf = None
@@ -352,32 +381,40 @@ def _mt_window(o, d, m, tmin, f, gate, tri_ids, best):
     best[3].copy_(torch.where(better, torch.gather(gamma, -1, j)[..., 0] + 0.0, best[3]))
 
 
-def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape,
-                          tile_chunk: int = 16, cluster_chunk: int = 64):
+def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape, tile_chunk: int = 16):
     """Plain PyTorch version of the traversal kernel: (t, tri, beta, gamma,
-    shade) per lane, t = 3e38 where no hit, shade None unless
+    shade, stats) per lane, t = 3e38 where no hit, shade None unless
     ``shape.emit_shade``.
 
     Candidate tiles (K1) evaluate the same windows as the kernel,
     vectorised over a chunk of tiles and the window's columns, window by
-    window in list order; a window is always G wide here (the tail
-    window's extra slots are padding that repeats the last candidate with
-    bits 0, so it cannot change a result).  Under ``mt_prune`` (K3) a
+    window in list order.  A window is G wide here, and the columns of its
+    padding slots (past the tile's count) are gated off: the kernel does
+    not stage them, and as repeats of the last candidate they could not
+    change a result.  Under ``mt_union=False`` (K6) every candidate is a
+    window of its own, gated by its own bits: K1 at ``mt_group`` 1.  Under ``mt_prune`` (K3) a
     sub-block skips a window whose minimum entry (``ent``, 1/16 m units;
-    padding slots hold 2**30) exceeds 16 x the largest running best of
-    its rays, the TPU kernel's gate at its granularity.  Under
+    padding slots hold 2**30) exceeds 16 x the largest running best of its
+    rays as the previous window left it, the TPU kernel's gate at its
+    granularity.  Under ``resident_cap`` (K5) ``cand`` holds live slots: a
+    window reads its columns from ``live_pack`` at ``slot * cs + j`` and
+    its triangle ids are ``live_tab[slot] * cs + j``.  Under
     ``emit_shade`` (K4) the winner's ``shade_pack`` row is gathered at the
     end (zeros where no triangle won).
 
-    Sweep tiles (K2) evaluate every cluster in the sweep's visit order,
-    each ray sub-block gated by the per-ray slab test with the loosest
-    running best (3e38), and skip the running-best prune.  This rests on
-    the assumption the JAX kernel's candidate mode already makes
-    (``_mt_kernel.process``): a valid MT hit lies inside its own
-    cluster's box, so a cluster the prune would skip (entry beyond the
-    current best) holds no nearer hit.
+    Sweep tiles (K2) walk the kernel's hierarchy, vectorised over the swept
+    tiles: each supergroup, group and cluster box in visit order is tested
+    against every ray with its running best (``tn <= best``), a tile skips
+    the box when none of its rays passes, and a cluster is evaluated at
+    once for the sub-blocks with a passing ray.  The sweep reads the global
+    pack, under K5 too.
+
+    ``stats`` [tiles, 2] int32 are the kernel's work counters: a candidate
+    tile's count twice; for a swept tile the groups visited (supergroups
+    when ``super_size == 1``) and the clusters whose tile-level test passed.
     """
     rt, cs, st = shape.ray_tile, shape.cluster_size, shape.sub_tiles
+    rs = rt // st
     dev = inp.origin.device
     lanes = inp.origin.shape[1]
     tiles = lanes // rt
@@ -395,67 +432,105 @@ def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape,
         torch.zeros((tiles, rt), dtype=torch.float32, device=dev),
         torch.zeros((tiles, rt), dtype=torch.float32, device=dev),
     )
-    sub = torch.arange(rt, device=dev) // (rt // st)
+    stats = torch.zeros((tiles, 2), dtype=torch.int32, device=dev)
+    sub = torch.arange(rt, device=dev) // rs
     ar_cs = torch.arange(cs, dtype=torch.int32, device=dev)
-    pack = inp.tri_pack
 
-    def run(tsel, cols, gate):
-        # tsel [n] tile ids; cols [n, W] triangle ids; gate -> [n, rt, W]
+    def run(tsel, src, cols, ids, gate):
+        # tsel [n] tile ids; cols [n, W] columns of src; ids [n, W] their
+        # triangle ids; gate -> [n, rt, W]
         n, w = cols.shape
-        f = pack[:, cols.reshape(-1).long()].reshape(16, n, 1, w)
+        f = src[:, cols.reshape(-1).long()].reshape(16, n, 1, w)
         b = tuple(x[tsel] for x in best)
         _mt_window(o[:, tsel, :, None], d[:, tsel, :, None], m[:, tsel, :, None],
-                   tmin[tsel][..., None], f, gate, cols[:, None, :], b)
+                   tmin[tsel][..., None], f, gate, ids[:, None, :], b)
         for x, y in zip(best, b):
             x[tsel] = y
 
     sweep = inp.meta[:, 1] != 0
     if shape.k_max > 0:
-        g = shape.mt_group
-        n_win = (inp.meta[:, 0] + g - 1) // g
+        g = shape.mt_group if shape.mt_union else 1
+        resident = shape.resident_cap > 0
+        src = inp.live_pack if resident else inp.tri_pack
+        count = inp.meta[:, 0]
+        n_win = (count + g - 1) // g
         cand_tiles = torch.nonzero(~sweep).reshape(-1)
+        stats[cand_tiles] = count[cand_tiles, None].expand(-1, 2)
         max_win = int(n_win[cand_tiles].max()) if cand_tiles.numel() else 0
+        ar_g = torch.arange(g, device=dev)
         for s in range(max_win):
             act = cand_tiles[n_win[cand_tiles] > s]
             for tsel in act.split(tile_chunk):
+                n = len(tsel)
                 slots = inp.cand[tsel, g * s : g * s + g]
                 wbits = inp.bits[tsel, g * s : g * s + g]
                 uni = wbits[:, 0]
-                for q in range(1, g):
-                    uni = uni | wbits[:, q]
+                for k in range(1, g):
+                    uni = uni | wbits[:, k]
                 gate = (torch.bitwise_right_shift(uni[:, None], sub[None, :]) & 1) != 0
                 if shape.mt_prune:
                     em = inp.ent[tsel, g * s : g * s + g].amin(1).to(torch.float32)
-                    bmax = best[0][tsel].reshape(len(tsel), st, rt // st).amax(-1)
+                    bmax = best[0][tsel].reshape(n, st, rs).amax(-1)
                     gate = gate & (em[:, None] <= bmax * 16.0)[:, sub]
-                cols = (slots[:, :, None] * cs + ar_cs).reshape(len(tsel), g * cs)
-                run(tsel, cols, gate[..., None])
+                real = (g * s + ar_g)[None, :] < count[tsel, None]  # [n, g]
+                cols = (slots[:, :, None] * cs + ar_cs).reshape(n, g * cs)
+                ids = cols
+                if resident:
+                    ids = (inp.live_tab[slots.long()][:, :, None] * cs + ar_cs).reshape(n, g * cs)
+                gate = gate[..., None] & real.repeat_interleave(cs, dim=1)[:, None, :]
+                run(tsel, src, cols, ids, gate)
     else:
         sweep = torch.ones_like(sweep)
 
     sweep_tiles = torch.nonzero(sweep).reshape(-1)
     if sweep_tiles.numel():
-        visit = _sweep_visit_order(inp, shape)
-        vmn, vmx = inp.mn[visit], inp.mx[visit]
-        for tile in sweep_tiles.tolist():
-            to, td = o[:, tile], d[:, tile]
-            alive = (td[0] * td[0] + td[1] * td[1] + td[2] * td[2]) > 0.0
-            ov = _slab_rays(to, td, tmin[tile], alive, vmn, vmx, _BIG)  # [rt, Cv]
-            sub_ov = ov.reshape(st, rt // st, -1).any(1)  # [st, Cv]
-            keep = sub_ov.any(0)
-            vis_k, sub_k = visit[keep], sub_ov[:, keep]
-            tsel = torch.tensor([tile], device=dev)
-            for c0 in range(0, vis_k.numel(), cluster_chunk):
-                ids = vis_k[c0 : c0 + cluster_chunk]
-                cols = (ids[:, None].to(torch.int32) * cs + ar_cs).reshape(1, -1)
-                gate = sub_k[:, c0 : c0 + cluster_chunk][sub]  # [rt, nc]
-                gate = gate.repeat_interleave(cs, dim=1)[None]
-                run(tsel, cols, gate)
+        n = sweep_tiles.numel()
+        so = o[:, sweep_tiles].reshape(3, -1)
+        sd = d[:, sweep_tiles].reshape(3, -1)
+        stmin = tmin[sweep_tiles].reshape(-1)
+        alive = (sd[0] * sd[0] + sd[1] * sd[1] + sd[2] * sd[2]) > 0.0
+        visits = torch.zeros(n, dtype=torch.int32, device=dev)
+        hits = torch.zeros(n, dtype=torch.int32, device=dev)
+
+        def passes(bmn, bmx, act):
+            """[n, rt]: the swept tiles' rays that pass one box's slab test
+            with their running bests, on the tiles in ``act`` [n]."""
+            bt = best[0][sweep_tiles].reshape(-1, 1)
+            ov = _slab_rays(so, sd, stmin, alive, bmn[None], bmx[None], bt)
+            return ov.reshape(n, rt) & act[:, None]
+
+        gs, ss = shape.group_size, shape.super_size
+        g_order = inp.g_order.tolist()
+        every = torch.ones(n, dtype=torch.bool, device=dev)
+        for sg in inp.s_order.tolist():
+            act_s = passes(inp.s_mn[sg], inp.s_mx[sg], every).any(1)
+            if not bool(act_s.any()):
+                continue
+            if ss == 1:
+                visits += act_s  # the supergroup box is the group box
+            for grp in [sg] if ss == 1 else g_order[sg * ss : (sg + 1) * ss]:
+                act = act_s
+                if ss > 1:
+                    act = passes(inp.g_mn[grp], inp.g_mx[grp], act_s).any(1)
+                    if not bool(act.any()):
+                        continue
+                    visits += act
+                for c in range(grp * gs, (grp + 1) * gs):
+                    ov = passes(inp.mn[c], inp.mx[c], act)
+                    hit = ov.any(1)
+                    sel = torch.nonzero(hit).reshape(-1)
+                    if not sel.numel():
+                        continue
+                    hits += hit
+                    gate = ov[sel].reshape(-1, st, rs).any(2)[:, sub]  # [k, rt]
+                    cols = (c * cs + ar_cs).expand(len(sel), cs)
+                    run(sweep_tiles[sel], inp.tri_pack, cols, cols, gate[..., None])
+        stats[sweep_tiles] = torch.stack([visits, hits], 1)
     t, tri, beta, gamma = (x.reshape(-1) for x in best)
     shade = None
     if shape.emit_shade:
         shade = torch.where((t < _BIG)[None], inp.shade_pack[tri.long()].T, 0.0)
-    return t, tri, beta, gamma, shade
+    return t, tri, beta, gamma, shade, stats
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +588,7 @@ def _load():
     if _Kernel.lib is None:
         lib = ctypes.CDLL(str(build_kernel()))
         fn = lib.mt_traverse_launch
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _Kernel.lib = lib
     return _Kernel.lib
@@ -540,6 +615,7 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
     n_groups = cp // shape.group_size
     n_super = n_groups // shape.super_size
     k_width = inp.cand.shape[1]
+    cap = shape.resident_cap
     f32, i32 = torch.float32, torch.int32
     if not (32 <= rt <= 1024 and lanes == tiles * rt):
         raise ValueError(f"ray_tile must be in [32, 1024] and divide the lanes; got {rt}, {lanes}")
@@ -556,9 +632,13 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
         ("cand", (tiles, k_width), i32), ("meta", (tiles, 2), i32), ("bits", (tiles, k_width), i32),
         ("ent", (tiles, k_width), i32),
         ("shade_pack", (n_tris if shape.emit_shade else 0, 10), f32),
+        ("live_pack", (16, cap * cs), f32), ("live_tab", (cap,), i32),
     ):
         _check(name, getattr(inp, name), dt, shp, dev)
-    smem = 16 * max(shape.mt_group if shape.k_max else 1, 1) * cs * 4
+    # K6 is K1 with windows of one cluster and no tail; a window stages g
+    # clusters, the sweep one
+    g, tail = (shape.mt_group, shape.mt_tail) if shape.mt_union else (1, False)
+    smem = 16 * (g if shape.k_max else 1) * cs * 4
     if smem > _SMEM_MAX:
         raise ValueError(f"window of {smem} B exceeds the {_SMEM_MAX} B of shared memory")
     out_t = torch.empty(lanes, dtype=f32, device=dev)
@@ -566,32 +646,39 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
     out_b = torch.empty(lanes, dtype=f32, device=dev)
     out_g = torch.empty(lanes, dtype=f32, device=dev)
     out_shade = torch.empty((10, lanes) if shape.emit_shade else (0,), dtype=f32, device=dev)
+    out_stats = torch.empty((tiles, 2), dtype=i32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mt_traverse_launch(
             *(x.data_ptr() for x in inp), out_t.data_ptr(), out_tri.data_ptr(),
-            out_b.data_ptr(), out_g.data_ptr(), out_shade.data_ptr(),
+            out_b.data_ptr(), out_g.data_ptr(), out_shade.data_ptr(), out_stats.data_ptr(),
             tiles, rt, n_tris, cp, cs, shape.group_size, shape.super_size,
-            shape.sub_tiles, shape.k_max, k_width, shape.mt_group, int(shape.mt_tail),
-            int(shape.mt_prune), int(shape.emit_shade), smem, stream,
+            shape.sub_tiles, shape.k_max, k_width, g, int(tail),
+            int(shape.mt_prune), int(shape.emit_shade), cap, smem, stream,
         )
     if err != 0:
         raise RuntimeError(f"mt_traverse kernel launch failed: cudaError {err}")
     mt_traverse.launches += 1
-    for mode, on in (("K3", shape.mt_prune), ("K4", shape.emit_shade)):
+    for mode, on in (("K3", shape.mt_prune), ("K4", shape.emit_shade), ("K5", cap > 0),
+                     ("K6", shape.k_max > 0 and not shape.mt_union)):
         mt_traverse.mode_launches[mode] += int(on)
-    return out_t, out_tri, out_b, out_g, out_shade if shape.emit_shade else None
+    return out_t, out_tri, out_b, out_g, out_shade if shape.emit_shade else None, out_stats
 
 
 def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
     """Phase 2: (t, tri, beta, gamma, shade) per lane, t = 3e38 where no
-    hit; shade is [10, lanes] under ``shape.emit_shade``, else None.
+    hit, shade [10, lanes] under ``shape.emit_shade``, else None; and the
+    per-tile work counters ``stats`` [tiles, 2] int32.
 
     CUDA tensors launch ``csrc/mt_traverse.cu`` and count the launch in
     ``mt_traverse.launches`` (every launch) and ``mt_traverse.
-    mode_launches`` (launches with the K3 prune, with the K4 shade
-    epilogue); CPU tensors run ``mt_traverse_reference``.
+    mode_launches`` (launches with the K3 prune, the K4 shade epilogue,
+    the K5 live pack, the K6 per-candidate windows); CPU tensors run
+    ``mt_traverse_reference``.  ``mt_traverse.resident_overflows`` is a
+    0-d int32 tensor on the last K5 call's device that counts the
+    ``closest_hit_clustered`` calls whose live set overflowed the cap
+    (every tile then sweeps); it is added to without a host read.
     """
     kind = inp.origin.device.type
     if kind == "cuda":
@@ -602,7 +689,8 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
 
 
 mt_traverse.launches = 0
-mt_traverse.mode_launches = {"K3": 0, "K4": 0}
+mt_traverse.mode_launches = {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
+mt_traverse.resident_overflows = torch.zeros((), dtype=torch.int32)
 
 
 def closest_hit_clustered(
@@ -632,8 +720,9 @@ def closest_hit_clustered(
     resident_cap: int = 0,
     emit_shade: bool = False,
     shade_pack=None,  # [T, 10] winner shade rows, required by emit_shade
+    with_stats: bool = False,
     traverse=None,  # phase-2 function; default mt_traverse
-) -> HitResult:
+):
     """Closest valid triangle per ray via clustered traversal (float32).
 
     Rays are components-major ([3, L], the engine layout: the JAX
@@ -649,13 +738,16 @@ def closest_hit_clustered(
     carries those rows in a 32-row ``tri_pack`` for its DMA tiling; here
     the pack keeps its 16 geometry rows and the kernel's epilogue reads
     the winner's row of ``shade_pack`` from device memory.
+
+    ``resident_cap > 0`` (with candidates) gathers the columns of the
+    tiles' live clusters, up to ``resident_cap`` of them, into one
+    compacted pack that the candidate windows read (K5); on this card the
+    pack lives in device memory like the global one.  A live set over the
+    cap sends every tile to the sweep.  ``mt_union=False`` evaluates one
+    window per candidate (K6).  Both give the default's result bit for
+    bit.  ``with_stats`` returns ``(hit, stats)``, stats the int32
+    [tiles, 2] work counters of ``mt_traverse``.
     """
-    for flag, name, roadmap in (
-        (resident_cap > 0, "resident_cap>0", "B, K5"), (not mt_union, "mt_union=False", "B, K6"),
-        (cand_order != "near", f"cand_order={cand_order!r}", "A.6"),
-    ):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported to rts_tpu_torch yet (ROADMAP {roadmap})")
     dev = origin.device
     l = origin.shape[1]
     t_total = tri_pack.shape[1]
@@ -679,6 +771,19 @@ def closest_hit_clustered(
         mt_group = min(mt_group, candidates)
         if candidates % mt_group:
             raise ValueError(f"candidates ({candidates}) must be a multiple of mt_group ({mt_group})")
+    resident = resident_cap > 0 and candidates > 0
+    if resident:
+        # rts_tpu's VMEM budget for the live pack, counted at its pack's
+        # rows (32 with the shade rows), so that both packages accept the
+        # same configurations
+        live_bytes = resident_cap * cluster_size * (32 if emit_shade else 16) * 4
+        if live_bytes > _LIVE_PACK_MAX:
+            raise ValueError(
+                f"resident_cap={resident_cap} makes a {live_bytes / 1e6:.1f} MB live pack "
+                f"({resident_cap} x {cluster_size} columns f32), over the "
+                f"{_LIVE_PACK_MAX / 1e6:.0f} MB that rts_tpu allows; lower resident_cap or "
+                "cluster_size"
+            )
     rt = ray_tile
     f32 = torch.float32
 
@@ -746,18 +851,26 @@ def closest_hit_clustered(
         shade_pack = shade_pack.to(f32).contiguous()
     else:
         shade_pack = torch.zeros((0, 10), dtype=f32, device=dev)
+    tri_pack = tri_pack.to(f32).contiguous()
+    if resident:
+        cand, meta, live_pack, live_tab = _live_set(cand, meta, tri_pack, resident_cap, c, cluster_size)
+    else:
+        live_pack = torch.zeros((16, 0), dtype=f32, device=dev)
+        live_tab = torch.zeros((0,), dtype=i32, device=dev)
     inp = TraversalInputs(
         origin.contiguous(), direction.contiguous(), tmin.contiguous(),
-        tri_pack.to(f32).contiguous(), aabb_mn.contiguous(), aabb_mx.contiguous(),
+        tri_pack, aabb_mn.contiguous(), aabb_mx.contiguous(),
         g_mn.contiguous(), g_mx.contiguous(), s_mn.contiguous(), s_mx.contiguous(),
         s_order.contiguous(), g_order.contiguous(), cand, meta, bits, ent, shade_pack,
+        live_pack, live_tab,
     )
     shape = TraversalShape(rt, cluster_size, gs, ss, sub_tiles, candidates, mt_group, mt_tail,
-                           bool(mt_prune and candidates > 0), bool(emit_shade))
-    best_t, best_tri, best_b, best_g, shade = (traverse or mt_traverse)(inp, shape)
+                           bool(mt_prune and candidates > 0), bool(emit_shade),
+                           bool(mt_union or candidates <= 0), resident_cap if resident else 0)
+    best_t, best_tri, best_b, best_g, shade, stats = (traverse or mt_traverse)(inp, shape)
     best_t = best_t[:l]
     found = best_t < RT_DEFAULT_MAX
-    return HitResult(
+    hit = HitResult(
         t=torch.where(found, best_t, _INF),
         tri=best_tri[:l],
         beta=best_b[:l],
@@ -765,3 +878,4 @@ def closest_hit_clustered(
         found=found,
         shade=None if shade is None else shade[:, :l],
     )
+    return (hit, stats) if with_stats else hit

@@ -82,7 +82,7 @@ _NOT_PORTED = {
     "strict_parity": (False, "the f64 parity engine (ROADMAP A.3)"),
     "accel": ("cluster", "the brute-force intersector (ROADMAP A.3)"),
     "rx_geom_on_device": (False, "on-device receiver geometry (ROADMAP A.8)"),
-    "fan_order": ("raster", "Morton fan tiling (ROADMAP A.6)"),
+    "fan_order": ("raster", "Morton fan tiling (ROADMAP A.4)"),
 }
 
 
@@ -92,7 +92,7 @@ def prepare_cpi(
     *,
     tx_index: int = 0,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     preset: str | None = None,
     **options,
 ):
@@ -100,10 +100,12 @@ def prepare_cpi(
 
     Same options and presets as ``rts_tpu.sim.prepare_cpi``; explicit
     keyword options override the preset.  ``device`` is where every
-    tensor is created.  Configurations the port cannot run yet raise
-    ``NotImplementedError`` naming the ROADMAP item: anything but
-    ``accel="cluster"``, refraction (``max_refr_depth > 0``), and the
-    traversal options listed in ``ops.cluster_trace``.
+    tensor is created: the card unless the caller asks for another (there
+    is no fallback; the CPU runs the traversal's plain version).
+    Configurations the port cannot run yet raise ``NotImplementedError``
+    naming the ROADMAP item: anything but ``accel="cluster"``, refraction
+    (``max_refr_depth > 0``), strict parity, on-device receiver geometry
+    and Morton fan tiling.
 
     ``refine=True`` (the production preset) also builds the float64 state
     of the precision replay: f64 copies of the base corners, normals and
@@ -252,7 +254,7 @@ def run_cpi(
     *,
     tx_index: int = 0,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     preset: str | None = None,
     attach_responses: bool = True,
     **options,

@@ -37,6 +37,8 @@ from rts_tpu_torch.sim import check_replay_overflow
 
 torch.set_num_threads(1)
 
+DEVICE = "cpu"  # the port's entry points default to the card
+
 
 def terrain_world(S):
     """bench.py's terrain scene (BASELINE config 4) cut to ~1.7k triangles."""
@@ -97,10 +99,11 @@ def test_slice_matches_rts_tpu(world, num_rays):
     jb, jbat, jcfg, jspec = js.prepare_cpi(world(js), JParameters(num_rays=num_rays, max_refl_depth=2),
                                            dtype=jnp.float32, interpret=True, **kw)
     ref, ref_path = _j_trace(jb, jbat, jcfg, jspec)
-    base, batch = convert.scene_base(jb), convert.pulse_batch(jbat)
+    base, batch = convert.scene_base(jb, device=DEVICE), convert.pulse_batch(jbat, device=DEVICE)
     cfg, spec = convert.trace_config(jcfg), convert.cpi_spec(jspec)
     # the port's own front end builds the same state from its own World
-    tb, tbat, tcfg, _ = ts.prepare_cpi(world(ts), TParameters(num_rays=num_rays, max_refl_depth=2), **kw)
+    tb, tbat, tcfg, _ = ts.prepare_cpi(world(ts), TParameters(num_rays=num_rays, max_refl_depth=2),
+                                       device=DEVICE, **kw)
     assert tcfg == dataclasses.replace(cfg, interpret=False)  # the Pallas interpreter flag
     assert all(torch.equal(a, b) for a, b in zip(tb, base) if a is not None)
     assert tb.tri_verts_f64 is None and base.tri_verts_f64 is None  # refine=False: no f64 state
@@ -136,6 +139,6 @@ def test_slice_matches_rts_tpu(world, num_rays):
 def test_run_cpi_attaches_one_response_per_emitted_path():
     world = plate_world(ts)
     out = ts.run_cpi(world, TParameters(num_rays=5, max_refl_depth=2), preset="production",
-                     refine=False, cluster_size=128, ray_tile=128)
+                     refine=False, cluster_size=128, ray_tile=128, device=DEVICE)
     assert int(out.agg.emit.sum()) > 0
     assert sum(len(rx.responses) for rx in world.receivers) == int(out.agg.emit.sum())

@@ -46,6 +46,7 @@ torch.set_num_threads(1)
 
 ULP2 = 2.4e-7  # two f32 ulp, relative
 C = 299792458.0
+DEVICE = "cpu"  # the port's entry points default to the card
 
 
 @pytest.mark.parametrize(
@@ -56,7 +57,7 @@ C = 299792458.0
 def test_generate_fan_c_matches(num_rays, tx_dir, span):
     az, el = np.float32(tx_dir[0]), np.float32(tx_dir[1])
     ref = np.asarray(j_fan(num_rays, (jnp.float32(az), jnp.float32(el)), span, dtype=jnp.float32))
-    got = t_fan(num_rays, (torch.tensor(az), torch.tensor(el)), span).numpy()
+    got = t_fan(num_rays, (torch.tensor(az), torch.tensor(el)), span, device=DEVICE).numpy()
     assert got.shape == ref.shape == (3, num_rays**3)
     np.testing.assert_allclose(got, ref, rtol=0, atol=ULP2)
 
@@ -88,7 +89,7 @@ def jax_state():
 
 def test_animate_packed_matches(jax_state):
     jb, jbat, _, _ = jax_state
-    tb, tbat = convert.scene_base(jb), convert.pulse_batch(jbat)
+    tb, tbat = convert.scene_base(jb, device=DEVICE), convert.pulse_batch(jbat, device=DEVICE)
     for p in range(2):
         ref = j_animate(jb, jbat.rot[p], jbat.pos[p], jbat.vel[p], 128)
         got = t_animate(tb, tbat.rot[p], tbat.pos[p], tbat.vel[p])
@@ -99,7 +100,7 @@ def test_animate_packed_matches(jax_state):
 
 
 def _scene(jsc):
-    return ClusterScene(*(convert.tensor(getattr(jsc, f)) for f in ClusterScene._fields))
+    return ClusterScene(*(convert.tensor(getattr(jsc, f), DEVICE) for f in ClusterScene._fields))
 
 
 @pytest.fixture(scope="module")
@@ -121,8 +122,9 @@ def traced(jax_state):
 
     TW.closest_hit_clustered = spy
     try:
-        got = TW.trace_fan(_scene(jsc), convert.rx_geom(rx1), convert.tensor(jbat.tx_origin[1]),
-                           convert.tensor(fan), convert.trace_config(jcfg))
+        got = TW.trace_fan(_scene(jsc), convert.rx_geom(rx1, DEVICE),
+                           convert.tensor(jbat.tx_origin[1], DEVICE), convert.tensor(fan, DEVICE),
+                           convert.trace_config(jcfg))
     finally:
         TW.closest_hit_clustered = real
     return ref, got, widths, jax_state
@@ -159,13 +161,14 @@ def test_postprocess_matches(traced):
         tx_rotation=(jbat.tx_dir[1, 0], jbat.tx_dir[1, 1]), rx_rotation_fns=kw["rx_rotation_fns"],
         time_t=jbat.times[1], carrier=kw["carrier"], cspeed=kw["cspeed"],
     )
-    res = TraceResult(*(convert.tensor(getattr(ref, f)) for f in TraceResult._fields))
-    tdir = convert.tensor(jbat.tx_dir[1])
+    res = TraceResult(*(convert.tensor(getattr(ref, f), DEVICE) for f in TraceResult._fields))
+    tdir = convert.tensor(jbat.tx_dir[1], DEVICE)
     tout = t_postprocess(
-        res, tx_origin=convert.tensor(jbat.tx_origin[1]), rx_positions=convert.tensor(jbat.rx_pos[1]),
+        res, tx_origin=convert.tensor(jbat.tx_origin[1], DEVICE),
+        rx_positions=convert.tensor(jbat.rx_pos[1], DEVICE),
         rcs_models=spec.rcs_models, tx_gain=spec.tx_gain, rx_gains=spec.rx_gains,
         tx_rotation=(tdir[0], tdir[1]), rx_rotation_fns=spec.rx_rotation_fns,
-        time_t=convert.tensor(jbat.times[1]), carrier=spec.carrier, cspeed=spec.cspeed,
+        time_t=convert.tensor(jbat.times[1], DEVICE), carrier=spec.carrier, cspeed=spec.cspeed,
     )
     for name, a, b in zip(("power", "doppler", "delay"), tout, jout):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=ULP2, atol=0, err_msg=name)

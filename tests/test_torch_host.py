@@ -5,6 +5,7 @@ float32 rounding, so every array must be EQUAL, not merely close.
 """
 
 import dataclasses
+import inspect
 import math
 import pathlib
 import re
@@ -35,6 +36,7 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "rts_tpu_torch"
+DEVICE = "cpu"  # the port's entry points default to the card
 
 
 def test_port_imports_every_module_without_jax():
@@ -60,6 +62,18 @@ def test_no_port_module_names_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import rts_tpu\b|from rts_tpu[ .])", re.M)
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py") if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_entry_points_default_to_the_card():
+    """prepare_cpi, run_cpi, scene_base, generate_fan_c and the convert
+    functions build on "cuda" unless the caller asks for another device."""
+    from rts_tpu_torch.engine.animate import scene_base
+    from rts_tpu_torch.engine.fan import generate_fan_c
+
+    fns = [ts.prepare_cpi, ts.run_cpi, scene_base, generate_fan_c, convert.tensor, convert.f64,
+           convert.scene_base, convert.rx_geom, convert.refine_extras, convert.pulse_batch]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 
 def _meshes(geom, case):
@@ -130,7 +144,8 @@ def test_prepare_cpi_state_equal_and_convert(refine):
     kw = dict(preset="production", refine=refine, cluster_size=128, ray_tile=128)
     jb, jbat, jcfg, jspec = js.prepare_cpi(make_world(js), JParameters(num_rays=5, max_refl_depth=2),
                                            dtype=jnp.float32, **kw)
-    tb, tbat, tcfg, tspec = ts.prepare_cpi(make_world(ts), TParameters(num_rays=5, max_refl_depth=2), **kw)
+    tb, tbat, tcfg, tspec = ts.prepare_cpi(make_world(ts), TParameters(num_rays=5, max_refl_depth=2),
+                                           device=DEVICE, **kw)
     for name, t in tb._asdict().items():
         if not name.endswith("_f64"):
             np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jb, name)), err_msg=name)
@@ -143,8 +158,8 @@ def test_prepare_cpi_state_equal_and_convert(refine):
     assert not np.allclose(tbat.rot.numpy()[1:], np.eye(3))  # the rotation is exercised
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert convert.trace_config(jcfg) == tcfg
-    cb = convert.scene_base(jb)
-    cbat = convert.pulse_batch(jbat)
+    cb = convert.scene_base(jb, device=DEVICE)
+    cbat = convert.pulse_batch(jbat, device=DEVICE)
     f64 = [f for f in tb._fields if f.endswith("_f64")]
     assert all(torch.equal(getattr(cb, f), getattr(tb, f)) for f in tb._fields if f not in f64)
     assert all(torch.equal(a, b) for a, b in zip(cbat.rx_geom, tbat.rx_geom))
@@ -185,7 +200,7 @@ def test_prepare_cpi_refuses_unported(options):
     params = TParameters(num_rays=3, max_refl_depth=1,
                          max_refr_depth=2 if options.pop("refraction", False) else 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.prepare_cpi(make_world(ts, pulses=1), params, **options)
+        ts.prepare_cpi(make_world(ts, pulses=1), params, device=DEVICE, **options)
 
 
 def test_iso_models_match_rts_tpu():

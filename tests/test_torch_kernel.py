@@ -1,5 +1,6 @@
 """The traversal's CUDA kernel against its plain PyTorch version, on the card
-(modes K1/K2, the K3 prune and the K4 shade emit).
+(modes K1/K2, the K3 prune, the K4 shade emit, the K5 live pack and the K6
+per-candidate windows, and the work counters).
 
 Marked ``gpu``: skips where there is no CUDA card.  This file imports
 neither jax nor rts_tpu, so it also runs on a machine without them:
@@ -137,3 +138,53 @@ def test_cuda_kernel_shade_matches_plain(cuda_device, mode):
     assert torch.equal(got.shade.view(torch.int32), ref.shade.view(torch.int32))
     for name in _FIELDS:
         assert torch.equal(getattr(got, name), getattr(off, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [64, 2], ids=["live_pack", "live_set_overflow"])
+def test_cuda_kernel_resident_matches_plain(cuda_device, cap):
+    """K5: windows staged from the live pack equal the plain version's and
+    the default kernel's, bit for bit; at cap 2 every tile sweeps."""
+    sc = _scene(cuda_device)
+    o, d, tmin = _rays(cuda_device)
+    args = (o, d, tmin, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, candidates=64, mt_group=8,
+              sub_tiles=8)
+    before = TCT.mt_traverse.mode_launches["K5"]
+    got, stats = closest_hit_clustered(*args, resident_cap=cap, with_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert TCT.mt_traverse.mode_launches["K5"] == before + 1
+    ref, ref_stats = closest_hit_clustered(*args, resident_cap=cap, with_stats=True,
+                                           traverse=mt_traverse_reference, **kw)
+    off = closest_hit_clustered(*args, **kw)
+    assert int(ref.found.sum()) > 60
+    assert torch.equal(stats, ref_stats)
+    for name in _FIELDS:
+        for other, what in ((ref, "plain"), (off, "default")):
+            a, b = getattr(got, name), getattr(other, name)
+            assert torch.equal(a, b), (what, name, (a != b).sum().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group, prune", [(8, False), (4, True)], ids=["g8", "g4_prune"])
+def test_cuda_kernel_per_candidate_matches_plain(cuda_device, group, prune):
+    """K6, and K6 with the K3 prune on the shell scene: the kernel equals
+    the plain version and the default kernel bit for bit."""
+    sc = _scene(cuda_device, subdiv=4 if prune else 3)
+    rays = _silhouette_rays(cuda_device) if prune else _rays(cuda_device)
+    args = (*rays, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, candidates=48,
+              mt_group=group, sub_tiles=8)
+    before = dict(TCT.mt_traverse.mode_launches)
+    got = closest_hit_clustered(*args, mt_union=False, mt_prune=prune, **kw)
+    torch.cuda.synchronize()
+    assert TCT.mt_traverse.mode_launches["K6"] == before["K6"] + 1
+    assert TCT.mt_traverse.mode_launches["K3"] == before["K3"] + int(prune)
+    ref = closest_hit_clustered(*args, mt_union=False, mt_prune=prune,
+                                traverse=mt_traverse_reference, **kw)
+    off = closest_hit_clustered(*args, **kw)
+    assert int(ref.found.sum()) > 60
+    for name in _FIELDS:
+        for other, what in ((ref, "plain"), (off, "default")):
+            a, b = getattr(got, name), getattr(other, name)
+            assert torch.equal(a, b), (what, name, (a != b).sum().item())

@@ -44,6 +44,7 @@ KNOBS = dict(accel="cluster", cluster_size=1024, candidates=128, mt_group=1, p1_
              compact_narrow=-1, refine=True, replay_cap=128, agg_cap=1024)
 # (fan node of a 3^3 fan, range m, radial speed m/s), bench.py:169-174
 SPHERES = ((12, 900.0, -50.0), (9, 1400.0, 80.0), (15, 2000.0, -140.0), (3, 2600.0, 30.0))
+DEVICE = "cpu"  # the port's entry points default to the card
 
 
 def moving_world(S, subdivisions=2, pulses=2):
@@ -51,7 +52,7 @@ def moving_world(S, subdivisions=2, pulses=2):
     w.add(S.Transmitter(path=S.Path.fixed(0, 0, 0), wave=S.RadarSignal(carrier=10e9),
                         pulse_count=pulses, prf=1000.0, tx_span=(0.15, 0.15, 0.0)))
     w.add(S.Receiver(path=S.Path.fixed(0, 0, 0), sphere=(25.0, 1.2, 1.2)))
-    nodes = generate_fan_c(3, (0.0, 0.0), (0.15, 0.15, 0.0)).T.double().numpy()
+    nodes = generate_fan_c(3, (0.0, 0.0), (0.15, 0.15, 0.0), device=DEVICE).T.double().numpy()
     for node, rng, speed in SPHERES:
         d = nodes[node] / np.linalg.norm(nodes[node])
         w.add(S.Target(path=S.Path.linear([(0.0, tuple(rng * d)), (1.0, tuple((rng + speed) * d))]),
@@ -65,7 +66,7 @@ def runs():
                             **KNOBS)
     ref, ref_path = _j_trace(*jstate)
     b64, bat64, cfg64, spec64 = js.prepare_cpi(moving_world(js), JParameters(**PARAMS), dtype=jnp.float64)
-    state = ts.prepare_cpi(moving_world(ts), TParameters(**PARAMS), **KNOBS)
+    state = ts.prepare_cpi(moving_world(ts), TParameters(**PARAMS), device=DEVICE, **KNOBS)
     return dict(ref=ref, ref_path=ref_path, f64=j_trace_cpi(b64, bat64, cfg64, spec64), state=state,
                 port=trace_cpi(*state))
 

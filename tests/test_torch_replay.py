@@ -38,6 +38,7 @@ torch.set_num_threads(1)
 TWO_PI = 2.0 * math.pi
 PARAMS = dict(num_rays=5, max_refl_depth=2)
 CLUSTER = dict(accel="cluster", cluster_size=128, ray_tile=128)
+DEVICE = "cpu"  # the port's entry points default to the card
 
 
 def world(S):
@@ -74,9 +75,10 @@ def runs():
     jstate = js.prepare_cpi(world(js), JParameters(**PARAMS), dtype=jnp.float32, refine=True,
                             interpret=True, **CLUSTER)
     ds = j_trace_cpi(*jstate)
-    tstate = ts.prepare_cpi(world(ts), TParameters(**PARAMS), refine=True, **CLUSTER)
+    tstate = ts.prepare_cpi(world(ts), TParameters(**PARAMS), refine=True, device=DEVICE, **CLUSTER)
     jb, jbat, jcfg, jspec = jstate
-    carried = (convert.scene_base(jb), convert.pulse_batch(jbat), convert.trace_config(jcfg),
+    carried = (convert.scene_base(jb, device=DEVICE), convert.pulse_batch(jbat, device=DEVICE),
+               convert.trace_config(jcfg),
                convert.cpi_spec(jspec))
     return dict(f64=f64, ds=ds, state=tstate, port=trace_cpi(*tstate), carried=trace_cpi(*carried))
 

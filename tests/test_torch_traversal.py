@@ -275,17 +275,13 @@ def test_emit_shade_matches_rts_tpu(mode):
     np.testing.assert_array_equal(got.shade.numpy(), np.asarray(ref.shade))
 
 
-@pytest.mark.parametrize(
-    "option",
-    [dict(resident_cap=8), dict(mt_union=False), dict(cand_order="mask"),
-     dict(emit_shade=True)],
-    ids=["resident_cap", "mt_union_off", "mask_order", "emit_shade_without_table"],
-)
+@pytest.mark.parametrize("option", [dict(emit_shade=True)], ids=["emit_shade_without_table"])
 def test_unported_options_raise(option):
+    """Every traversal option of rts_tpu runs (tests/test_torch_modes.py);
+    the shade emit without its table is refused."""
     pack, mn, mx = _scene()
     o, d, tmin = _rays(l=RT)
-    error = ValueError if "emit_shade" in option else NotImplementedError
-    with pytest.raises(error, match="shade_pack" if "emit_shade" in option else "ROADMAP"):
+    with pytest.raises(ValueError, match="shade_pack"):
         closest_hit_clustered(_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx),
                               cluster_size=CS, ray_tile=RT, **option)
 

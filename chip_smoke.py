@@ -12,7 +12,9 @@ moving``).  There is no CPU fallback: without a CUDA card it exits
 non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
-  1. build the traversal kernel (csrc/mt_traverse.cu) from source;
+  1. build the traversal kernel (csrc/mt_traverse.cu) from source, with the
+     compiler's register report; the candidate and sweep grids' blocks and
+     warps per SM at the two paths' shapes;
   2. kernel against its plain PyTorch version: the segment-1 rays of one
      pulse of the terrain scene at the production knobs, and a small scene
      sweep-only (candidates=0); tri/found must be identical and t/beta/
@@ -25,7 +27,8 @@ Phases (each line stamped with the card's name and power limit):
      path rows must equal the kernel run's;
   a. moving scene, segment 1 of pulse 0 at its knobs (mt_prune=True, K3):
      kernel against plain (tri/found identical, t/beta/gamma bit-equal),
-     and the kernel with the prune against the kernel without it;
+     and the kernel with the prune against the kernel without it; the
+     segment's swept tiles alone (what the sweep grid takes of the call);
   b. the same with emit_shade=True (K4): shade bit-equal to the plain gather;
   c. moving main path: 8 pulses with refine=True; received > 0, finite,
      K3 launches counted, a second run bit-identical, no replay-cap
@@ -48,7 +51,11 @@ Phases (each line stamped with the card's name and power limit):
      bit-equal to phase a;
   i. the terrain CPI through prepare_cpi with resident_cap=512 and with
      mt_union=False, 8 pulses each: bit-identical to phase 3, K5/K6
-     launches counted, no live-set overflow, a second run bit-identical.
+     launches counted, no live-set overflow, a second run bit-identical;
+  j. profile: torch.profiler over one warm pulse of each main path (the
+     terrain at the production preset, the moving shells at MOVING_KNOBS):
+     device time against the wall, the kernel's share of device time, the
+     five largest operators by device time.  Printed only; it gates nothing.
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -58,7 +65,8 @@ K6 + K3 on moving segment 1), so each of them gets the bound of the
 fewest pairs and clusters that any of them evaluated: its FP32 operations
 and the bytes it must move, the least time the card could take (the
 larger of the operations over the FP32 peak and the bytes over the memory
-rate), which of the two binds, and the kernel's share of it.
+rate), which of the two binds, and the kernel's share of it; and the
+kernel's picoseconds per pair it evaluated.
 
 The line before the card line is a JSON object with the kernel's modes,
 their launches in the main paths, errors, times and bounds; the last line
@@ -67,6 +75,7 @@ is the JSON result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -238,7 +247,8 @@ def entry(name: str, replaces: str, launches: int, r: dict) -> dict:
             "replaces": f"rts_tpu/ops/cluster_trace.py:{replaces}", "launches": launches,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "pairs": r["pairs"], "bound_pairs": r["bound_pairs"]}
+            "pairs": r["pairs"], "bound_pairs": r["bound_pairs"],
+            "ps_per_pair": 1e9 * r["ms"] / r["pairs"]}
 
 
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -286,6 +296,39 @@ def same_result(a, b) -> bool:
     return bit_equal(a, b)
 
 
+def profile_pulse(card: str, what: str, pulse) -> None:
+    """Phase j: torch.profiler over one warm call of ``pulse`` (one pulse of
+    a main path): device time against the wall, the traversal kernel's
+    share of device time, the five largest operators by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pulse()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pulse()
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # device time is counted on the device's own events (kernels, copies);
+    # an operator's self device time is the same time seen from the host
+    on_device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    ops = [e for e in events if getattr(e, "device_type", None) != DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in on_device) / 1e3
+    if busy_ms == 0:
+        stamp(card, f"phase j {what}: the profiler recorded no device time ({wall_ms:.1f} ms wall)")
+        return
+    kern_ms = sum(dev_us(e) for e in on_device if "cand_kernel" in e.key or "sweep_kernel" in e.key) / 1e3
+    stamp(card, f"phase j {what}: one warm pulse, {wall_ms:.1f} ms wall under the profiler, "
+                f"{busy_ms:.1f} ms of device time ({100 * busy_ms / wall_ms:.1f}% of the wall; the "
+                f"two traversal grids may overlap); the traversal kernel {kern_ms:.2f} ms "
+                f"({100 * kern_ms / busy_ms:.1f}% of device time); the largest operators by device time:")
+    for e in sorted(ops, key=dev_us, reverse=True)[:5]:
+        stamp(card, f"phase j {what}:   {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -315,7 +358,15 @@ def main() -> int:
     lib = CT.build_kernel(verbose=True)
     CT._load()
     stamp(card, f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.2f} s")
-
+    occ = (ctypes.c_int * 3)()
+    for what, rt, st, cs in (("terrain", 512, 8, 128), ("moving", 512, 8, 1024)):
+        err = CT._load().mt_traverse_occupancy(rt, st, 16 * cs * 4, occ)
+        if err:
+            raise RuntimeError(f"occupancy query failed: cudaError {err}")
+        stamp(card, f"phase 1 occupancy ({what}: ray_tile {rt}, sub_tiles {st}, cluster_size "
+                    f"{cs}): candidate grid {occ[0]} blocks of {occ[1]} threads, "
+                    f"{occ[0] * occ[1] // 32} warps per SM; sweep grid alone {occ[2]} blocks, "
+                    f"{occ[2] * rt // 32} warps per SM")
     # ---- 2. kernel against plain
     def segment1(world, **options):
         """CPI state and the segment-1 closest_hit_clustered arguments of
@@ -373,7 +424,8 @@ def main() -> int:
                     f"{inp.meta.shape[0]} tiles ({int(inp.meta[:, 1].sum())} swept), tri/found "
                     f"identical, t/beta/gamma{'/shade' if shape.emit_shade else ''} and counters "
                     f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call; the plain "
-                    f"version evaluated {pairs} pairs over {clusters} clusters")
+                    f"version evaluated {pairs} pairs over {clusters} clusters; the kernel "
+                    f"{1e9 * ms / pairs:.3f} ps per pair")
         return dict(hit=got, err=err, ms=ms, plain_ms=plain_ms, call=(inp, shape), stats=stats,
                     pairs=pairs, clusters=clusters, what=what)
 
@@ -434,7 +486,6 @@ def main() -> int:
                 f"launches; {1e3 * best_s / P:.1f} ms/pulse, {P * R / best_s:.4g} rays/s "
                 f"(first run {first_s:.2f} s, second {second_s:.2f} s, bit-identical)")
     terrain_ms_pulse = 1e3 * best_s / P
-
     # ---- 4. one terrain pulse through the plain traversal, against the kernel
     runs = []
     for traverse in (None, CT.mt_traverse_reference):
@@ -450,7 +501,7 @@ def main() -> int:
             raise AssertionError(f"plain-traversal pulse differs in {name}")
     stamp(card, f"phase 4 plain-traversal pulse: received ({int((res_p.received >= 0).sum())} "
                 "lanes), path rows and emit identical to the kernel run")
-    del base, batch, again, runs, res_k, res_p, out_k, out_p
+    del again, runs, res_k, res_p, out_k, out_p  # base, batch: phase j
 
     # ---- a. moving scene, segment 1, with the prune (K3)
     (mbase, mbatch, mcfg, mspec), mscene, m_args, m_knobs = segment1(moving_world(PULSES), **MOVING_KNOBS)
@@ -462,6 +513,17 @@ def main() -> int:
     ms_np = time_ms(lambda: CT.mt_traverse(inp, shape._replace(mt_prune=False)), 20)
     stamp(card, f"phase a: the kernel with the prune equals it without, bit for bit; without the "
                 f"prune {ms_np:.3f} ms per call")
+    # the swept tiles alone: what the sweep grid takes of the call
+    swept = torch.nonzero(inp.meta[:, 1] != 0).reshape(-1)
+    if swept.numel():
+        lanes = (swept[:, None] * shape.ray_tile + torch.arange(shape.ray_tile, device=dev)).reshape(-1)
+        sw_inp = inp._replace(origin=inp.origin[:, lanes].contiguous(),
+                              direction=inp.direction[:, lanes].contiguous(),
+                              tmin=inp.tmin[lanes].contiguous(),
+                              **{k: getattr(inp, k)[swept].contiguous() for k in ("cand", "meta", "bits", "ent")})
+        ms_sw = time_ms(lambda: CT.mt_traverse(sw_inp, shape), 5)
+        stamp(card, f"phase a: its {swept.numel()} swept tiles alone (the sweep grid) {ms_sw:.3f} ms per call")
+        del sw_inp
 
     # ---- b. the same segment with the shade emit (K4)
     s_knobs = {**m_knobs, "emit_shade": True}
@@ -552,7 +614,7 @@ def main() -> int:
                 f"power {d_power:.3e} (relative), phase {d_phase:.3e} rad; replay "
                 f"{replay_ms:.3f} ms per pulse, {100 * replay_ms / m_ms_pulse:.2f}% of the "
                 f"{m_ms_pulse:.1f} ms pulse")
-    del mbase, mbatch, mout, magain, res_s, res_g, res_u, out_s, out_g, out_u, args0
+    del mout, magain, res_s, res_g, res_u, out_s, out_g, out_u, args0  # mbase, mbatch: phase j
 
     # ---- f. terrain segment 1 with the live pack (K5)
     k1_call = k1["call"]
@@ -576,7 +638,7 @@ def main() -> int:
     swept8 = int(call8[0].meta[:, 1].sum())
     if swept8 != call8[0].meta.shape[0]:
         raise AssertionError(f"phase f resident_cap=8: {swept8} swept tiles, not every tile")
-    ms8 = time_ms(lambda: CT.mt_traverse(*call8), 3)
+    ms8 = time_ms(lambda: CT.mt_traverse(*call8), 10)
     stamp(card, f"phase f resident_cap=8: the live set overflows, all {swept8} tiles sweep; "
                 f"bit-equal to the sweep-only kernel, and to K1 but for {ties} lanes of an exact "
                 f"t tie that the sweep's visit order breaks the other way; kernel {ms8:.3f} ms "
@@ -643,6 +705,16 @@ def main() -> int:
     if overflows:
         raise AssertionError(f"{overflows} segments overflowed the live pack's cap {RESIDENT_CAP}")
     stamp(card, f"phase i: no segment overflowed the live pack's cap {RESIDENT_CAP}")
+
+    # ---- j. profile one warm pulse of each main path
+    for what, state in (("terrain", (base, batch, cfg, spec)), ("moving", (mbase, mbatch, mcfg, mspec))):
+        one, agg = make_pulse_fn(state[0], state[2], state[3])
+        args_j = pulse_args(state[1], 0)
+        try:
+            profile_pulse(card, what, lambda: agg(*one(*args_j)))
+        except Exception as exc:  # the phase measures; it gates nothing
+            stamp(card, f"phase j {what}: the profiler failed: {exc!r}")
+    del base, batch, mbase, mbatch
     kernels = [
         entry("mt_traverse K1/K2 (candidate windows, sweep)", "249", launches,
               {**k1, "err": max(k1["err"], k2["err"])}),

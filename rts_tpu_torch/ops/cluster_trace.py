@@ -621,8 +621,16 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
         raise ValueError(f"ray_tile must be in [32, 1024] and divide the lanes; got {rt}, {lanes}")
     if not 1 <= shape.sub_tiles <= 32:
         raise ValueError(f"sub_tiles must be in [1, 32]; got {shape.sub_tiles}")
-    if shape.mt_group > 32:
-        raise ValueError(f"mt_group must be <= 32; got {shape.mt_group}")
+    # a candidate block is one sub-block of rs rays, or one warp of 32 / rs
+    # sub-blocks; a window's columns are copied four at a time (16 bytes),
+    # so every pack row must start 16-B aligned
+    rs = rt // shape.sub_tiles
+    if shape.k_max > 0 and rs < 32 and (32 % rs or rt % 32):
+        raise ValueError(f"ray_tile / sub_tiles ({rs}) below 32 must divide 32, with ray_tile a "
+                         f"multiple of 32; got ray_tile={rt}, sub_tiles={shape.sub_tiles}")
+    if cs % 4 or n_tris % cs:
+        raise ValueError(f"cluster_size must be a multiple of 4 that divides the tri_pack's "
+                         f"{n_tris} columns; got {cs}")
     for name, shp, dt in (
         ("origin", (3, lanes), f32), ("direction", (3, lanes), f32), ("tmin", (lanes,), f32),
         ("tri_pack", (16, n_tris), f32), ("mn", (cp, 3), f32), ("mx", (cp, 3), f32),
@@ -635,12 +643,15 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
         ("live_pack", (16, cap * cs), f32), ("live_tab", (cap,), i32),
     ):
         _check(name, getattr(inp, name), dt, shp, dev)
-    # K6 is K1 with windows of one cluster and no tail; a window stages g
-    # clusters, the sweep one
+    for name in ("tri_pack", "live_pack"):
+        if getattr(inp, name).data_ptr() % 16:  # a view at an odd offset: the 16-byte copies need 16 B
+            inp = inp._replace(**{name: getattr(inp, name).clone()})
+    # K6 is K1 with windows of one cluster and no tail; candidate windows
+    # are staged in chunks of fixed size, the sweep stages one cluster
     g, tail = (shape.mt_group, shape.mt_tail) if shape.mt_union else (1, False)
-    smem = 16 * (g if shape.k_max else 1) * cs * 4
+    smem = 16 * cs * 4
     if smem > _SMEM_MAX:
-        raise ValueError(f"window of {smem} B exceeds the {_SMEM_MAX} B of shared memory")
+        raise ValueError(f"a cluster of {smem} B exceeds the {_SMEM_MAX} B of shared memory")
     out_t = torch.empty(lanes, dtype=f32, device=dev)
     out_tri = torch.empty(lanes, dtype=i32, device=dev)
     out_b = torch.empty(lanes, dtype=f32, device=dev)
@@ -671,11 +682,13 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
     hit, shade [10, lanes] under ``shape.emit_shade``, else None; and the
     per-tile work counters ``stats`` [tiles, 2] int32.
 
-    CUDA tensors launch ``csrc/mt_traverse.cu`` and count the launch in
-    ``mt_traverse.launches`` (every launch) and ``mt_traverse.
-    mode_launches`` (launches with the K3 prune, the K4 shade epilogue,
-    the K5 live pack, the K6 per-candidate windows); CPU tensors run
-    ``mt_traverse_reference``.  ``mt_traverse.resident_overflows`` is a
+    CUDA tensors launch ``csrc/mt_traverse.cu`` (the sweep grid, one block
+    per tile, and when ``k_max > 0`` beside it the candidate grid, one
+    block per ray sub-block) and count the call in ``mt_traverse.launches`` (every
+    call) and ``mt_traverse.mode_launches`` (calls with the K3 prune, the
+    K4 shade epilogue, the K5 live pack, the K6 per-candidate windows):
+    one count per call, whatever number of grids it launches.  CPU
+    tensors run ``mt_traverse_reference``.  ``mt_traverse.resident_overflows`` is a
     0-d int32 tensor on the last K5 call's device that counts the
     ``closest_hit_clustered`` calls whose live set overflowed the cap
     (every tile then sweeps); it is added to without a host read.

@@ -1,8 +1,10 @@
 """The traversal's CUDA kernel against its plain PyTorch version, on the card
 (modes K1/K2, the K3 prune, the K4 shade emit, the K5 live pack and the K6
-per-candidate windows, and the work counters).
+per-candidate windows, and the work counters), at every mapping of ray
+sub-blocks onto the kernel's warps and blocks, and on an exact tie.
 
-Marked ``gpu``: skips where there is no CUDA card.  This file imports
+Marked ``gpu``: skips where there is no CUDA card (the plain version's tie
+rule is also checked on the CPU, unmarked).  This file imports
 neither jax nor rts_tpu, so it also runs on a machine without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
@@ -40,11 +42,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _scene(device, subdiv=3):
+def _scene(device, subdiv=3, cs=CS):
     mesh, _ = sphere_mesh(subdiv, 50.0)
     plate = rect_mesh(2.0, 150.0, 150.0).translated([300.0, 100.0, 0.0])
     scene = compile_scene([mesh.translated([900.0, 0.0, 0.0]), plate], [0.9, 0.7], [1.0, 1.0])
-    base = scene_base(cluster_reorder(scene, cluster_size=CS), CS, device=device)
+    base = scene_base(cluster_reorder(scene, cluster_size=cs), cs, device=device)
     eye = torch.eye(3, device=device).expand(2, 3, 3)
     zero = torch.zeros((2, 3), device=device)
     return animate_packed(base, eye, zero, zero)
@@ -188,3 +190,149 @@ def test_cuda_kernel_per_candidate_matches_plain(cuda_device, group, prune):
         for other, what in ((ref, "plain"), (off, "default")):
             a, b = getattr(got, name), getattr(other, name)
             assert torch.equal(a, b), (what, name, (a != b).sum().item())
+
+
+# The candidate grid's block holds one ray sub-block (rs = ray_tile /
+# sub_tiles rays), or one warp of 32 / rs sub-blocks when rs < 32, once per
+# column slice: each geometry below maps its sub-blocks differently onto
+# warps and blocks (rs 128 fills 512 threads with four slices).
+_GEOMS = {
+    "rs16": dict(cs=128, ray_tile=128, sub_tiles=8, mt_group=8, mt_tail=True, mt_prune=False),
+    "rs32": dict(cs=128, ray_tile=128, sub_tiles=4, mt_group=8, mt_tail=True, mt_prune=False),
+    "rs64": dict(cs=256, ray_tile=256, sub_tiles=4, mt_group=4, mt_tail=True, mt_prune=False),
+    "rs64_moving": dict(cs=1024, ray_tile=512, sub_tiles=8, mt_group=1, mt_tail=True, mt_prune=True),
+    "rs128": dict(cs=128, ray_tile=512, sub_tiles=4, mt_group=8, mt_tail=True, mt_prune=False),
+}
+_CAND_MODES = {
+    "K1": dict(mt_prune=False),
+    "K3": dict(mt_prune=True),
+    "K5": dict(resident_cap=64),
+    "K6": dict(mt_union=False),
+}
+
+
+def _mixed_rays(device, l):
+    """Half silhouette rays (the prune skips back-face windows), half the
+    general set (misses, dead lanes, rays from inside the scene)."""
+    a, b = _silhouette_rays(device, l // 2), _rays(device, l - l // 2)
+    return tuple(torch.cat([x, y], dim=-1).contiguous() for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(_CAND_MODES))
+@pytest.mark.parametrize("geom", sorted(_GEOMS))
+def test_cuda_kernel_sub_block_mapping(cuda_device, geom, mode):
+    """Every candidate mode at every mapping of sub-blocks onto warps: the
+    kernel equals the plain version (hits and work counters) and the
+    geometry's default mode, bit for bit."""
+    knobs = dict(_GEOMS[geom])
+    cs = knobs.pop("cs")
+    sc = _scene(cuda_device, subdiv=4, cs=cs)
+    rays = _mixed_rays(cuda_device, 3 * knobs["ray_tile"])
+    args = (*rays, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=cs, group_size=8, super_size=1, candidates=48, **knobs)
+    opts = {**kw, **_CAND_MODES[mode]}
+    before = TCT.mt_traverse.launches
+    got, stats = closest_hit_clustered(*args, with_stats=True, **opts)
+    torch.cuda.synchronize()
+    assert TCT.mt_traverse.launches == before + 1
+    ref, ref_stats = closest_hit_clustered(*args, with_stats=True, traverse=mt_traverse_reference,
+                                           **opts)
+    default = closest_hit_clustered(*args, **kw)
+    assert int(ref.found.sum()) > 200
+    assert torch.equal(stats, ref_stats)
+    for name in _FIELDS:
+        for other, what in ((ref, "plain"), (default, "default mode")):
+            a, b = getattr(got, name), getattr(other, name)
+            assert torch.equal(a, b), (what, name, (a != b).sum().item())
+
+
+def _tie_inputs(device, order, ray_tile, sub_tiles):
+    """Three clusters of 128 columns that hold one triangle X three times:
+    at columns 5 and 77 of cluster 0 and at column 3 of cluster 1 (every
+    other column is all zeros, which never hits).  Each tile's candidate
+    list is ``order``, every sub-block gated in, entries 0.  Rays from the
+    origin into X."""
+    cs, c = 128, 3
+    f32 = torch.float32
+    p0, p1, p2 = (torch.tensor(v, dtype=f32) for v in ([500.0, -50.0, -50.0],
+                                                         [500.0, 60.0, -40.0],
+                                                         [500.0, 0.0, 70.0]))
+    cross = torch.linalg.cross
+    e0, e1 = p1 - p0, p0 - p2
+    n = cross(e1, e0)
+    col = torch.cat([n, cross(p0, e1), cross(p0, e0), e1, e0, (n * p0).sum().reshape(1)])
+    pack = torch.zeros((16, c * cs), dtype=f32)
+    for j in (5, 77, cs + 3):
+        pack[:, j] = col
+    lanes = 2 * ray_tile
+    rng = np.random.default_rng(7)
+    d = np.stack([np.ones(lanes), rng.uniform(-0.05, 0.05, lanes), rng.uniform(-0.05, 0.05, lanes)])
+    box = torch.tensor([[490.0, -60.0, -60.0]] * c), torch.tensor([[510.0, 70.0, 80.0]] * c)
+    k = len(order)
+    i32 = torch.int32
+    t = lambda a, dt=f32: torch.as_tensor(a, dtype=dt).to(device).contiguous()
+    inp = TCT.TraversalInputs(
+        t(np.zeros((3, lanes))), t(d), t(np.full(lanes, 0.005)), t(pack), t(box[0]), t(box[1]),
+        t(box[0]), t(box[1]), t(box[0]), t(box[1]), t(np.arange(c), i32), t(np.arange(c), i32),
+        t(np.tile(order, (2, 1)), i32), t(np.tile([k, 0], (2, 1)), i32),
+        t(np.full((2, k), 2**sub_tiles - 1), i32), t(np.zeros((2, k)), i32),
+        t(np.zeros((0, 10))), t(np.zeros((16, 0))), t(np.zeros(0), i32),
+    )
+    return inp, cs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", ["union_g2", "g1", "per_candidate"])
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["near_first", "far_first"])
+@pytest.mark.parametrize("ray_tile, sub_tiles", [(128, 8), (128, 4), (512, 8)])
+def test_cuda_kernel_exact_tie_first_column_wins(cuda_device, window, order, ray_tile, sub_tiles):
+    """An exact t tie among copies of one triangle: the first column of the
+    first window that holds a copy wins, in the kernel as in the plain
+    version (guards any split or merge of a ray's column scan)."""
+    inp, cs = _tie_inputs(cuda_device, list(order), ray_tile, sub_tiles)
+    g, union = {"union_g2": (2, True), "g1": (1, True), "per_candidate": (2, False)}[window]
+    shape = TCT.TraversalShape(ray_tile, cs, 1, 1, sub_tiles, 2, g, False, mt_prune=True,
+                               mt_union=union)
+    got = TCT.mt_traverse(inp, shape)
+    torch.cuda.synchronize()
+    ref = mt_traverse_reference(inp, shape)
+    found = ref[0] < 3.0e38
+    assert int(found.sum()) > ray_tile
+    first = 5 if order[0] == 0 else cs + 3
+    assert bool((ref[1][found] == first).all())
+    for a, b, name in zip(got[:4], ref[:4], ("t", "tri", "beta", "gamma")):
+        assert torch.equal(a, b), (name, (a != b).sum().item())
+    assert torch.equal(got[5], ref[5])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_refuses_a_pack_of_partial_clusters(cuda_device):
+    """The 16-byte copies of the pack need rows that are whole clusters
+    (a multiple of 4 columns): a tri_pack of another width is a ValueError,
+    not a misaligned copy on the card."""
+    inp, cs = _tie_inputs(cuda_device, [0, 1], 128, 4)
+    inp = inp._replace(tri_pack=inp.tri_pack[:, :-2].contiguous())
+    shape = TCT.TraversalShape(128, cs, 1, 1, 4, 2, 1, False)
+    with pytest.raises(ValueError, match="cluster_size"):
+        TCT.mt_traverse(inp, shape)
+
+
+@pytest.mark.parametrize("window", ["union_g2", "g1", "per_candidate"])
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["near_first", "far_first"])
+def test_plain_exact_tie_first_column_wins(window, order):
+    """The rule the kernel is held to, in the plain version on the CPU: of
+    three copies of one triangle (two in one cluster, one in the other),
+    the first column of the first window that holds a copy wins, and the
+    result does not depend on how the candidates are cut into windows."""
+    inp, cs = _tie_inputs(torch.device("cpu"), list(order), 128, 4)
+    g, union = {"union_g2": (2, True), "g1": (1, True), "per_candidate": (2, False)}[window]
+    shape = TCT.TraversalShape(128, cs, 1, 1, 4, 2, g, False, mt_prune=True, mt_union=union)
+    t, tri, beta, gamma, _, stats = mt_traverse_reference(inp, shape)
+    found = t < 3.0e38
+    assert int(found.sum()) > 128
+    assert bool((tri[found] == (5 if order[0] == 0 else cs + 3)).all())
+    assert torch.equal(stats, torch.full((2, 2), 2, dtype=torch.int32))
+    base = mt_traverse_reference(inp, shape._replace(mt_group=1, mt_union=True))
+    for a, b in zip((t, tri, beta, gamma), base[:4]):
+        assert torch.equal(a, b)

@@ -250,6 +250,58 @@ def test_mt_prune_matches_rts_tpu(mode, monkeypatch):
         assert torch.equal(getattr(got, name), getattr(plain, name)), name
 
 
+def _tie_scene(order):
+    """Three clusters of CS columns holding one triangle X three times: at
+    columns 5 and 77 of cluster 0 and at column 3 of cluster 1 (every
+    other column is all zeros, which never hits); cluster 2 lies behind
+    the rays.  ``order`` names the cluster whose box the rays enter first.
+    Rays from the origin into X."""
+    p0, p1, p2 = (np.array(v, np.float32) for v in ([500, -50, -50], [500, 60, -40], [500, 0, 70]))
+    e0, e1 = p1 - p0, p0 - p2
+    n = np.cross(e1, e0)
+    col = np.concatenate([n, np.cross(p0, e1), np.cross(p0, e0), e1, e0, [n @ p0]])
+    pack = np.zeros((16, 3 * CS), np.float32)
+    for j in (5, 77, CS + 3):
+        pack[:, j] = col
+    near, far = [490.0, -60.0, -60.0], [495.0, -60.0, -60.0]
+    mn = np.array([near, far, [-1010.0, -5.0, -5.0]] if order == 0 else
+                  [far, near, [-1010.0, -5.0, -5.0]], np.float32)
+    mx = np.array([[510.0, 70.0, 80.0]] * 2 + [[-1000.0, 5.0, 5.0]], np.float32)
+    rng = np.random.default_rng(7)
+    l = 2 * RT
+    d = np.stack([np.ones(l), rng.uniform(-0.05, 0.05, l), rng.uniform(-0.05, 0.05, l)]).astype(np.float32)
+    return pack, mn, mx, np.zeros((3, l), np.float32), d, np.full(l, 0.005, np.float32)
+
+
+_TIE_WINDOWS = {
+    "union_g2": dict(mt_group=2),
+    "g1": dict(mt_group=1),
+    "per_candidate": dict(mt_group=2, mt_union=False),
+}
+
+
+@pytest.mark.parametrize("window", sorted(_TIE_WINDOWS))
+@pytest.mark.parametrize("order", [0, 1], ids=["near_first", "far_first"])
+def test_exact_tie_matches_rts_tpu(window, order):
+    """An exact t tie among copies of one triangle, two in the cluster the
+    rays enter first or second and one in the other: the first column of
+    the first candidate that holds a copy wins in rts_tpu's kernel and in
+    the port's plain version alike (the rule the CUDA kernel is held to,
+    tests/test_torch_kernel.py)."""
+    pack, mn, mx, o, d, tmin = _tie_scene(order)
+    kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, sub_tiles=4,
+              candidates=4, mt_prune=True, **_TIE_WINDOWS[window])
+    ref = j_closest_hit(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), jnp.asarray(pack),
+                        jnp.asarray(mn), jnp.asarray(mx), jnp.zeros(3, jnp.float32),
+                        components=True, interpret=True, **kw)
+    got = closest_hit_clustered(_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx), torch.zeros(3), **kw)
+    found = np.asarray(ref.found)
+    assert found.sum() > RT
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_array_equal(np.asarray(ref.tri)[found], 5 if order == 0 else CS + 3)
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(ref.tri))
+
+
 @pytest.mark.parametrize("mode", ["candidates_g8_tail", "forced_overflow", "sweep_only"])
 def test_emit_shade_matches_rts_tpu(mode):
     """K4: HitResult.shade is the winner's shade_pack row (zeros where no

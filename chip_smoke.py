@@ -22,17 +22,19 @@ Phases (each line stamped with the card's name and power limit):
   3. terrain main path: prepare_cpi(preset="production", device="cuda")
      (refine=True: the float64 replay) and trace_cpi over 8 pulses at a
      63^3 fan; checks received > 0, finite power, kernel launches counted,
-     and a second run bit-identical (deterministic reductions);
+     and a second run bit-identical (deterministic reductions); the swept
+     tiles of every launch, as the kernel counts them on the device;
   4. one terrain pulse through the plain traversal: received, emit and
      path rows must equal the kernel run's;
   a. moving scene, segment 1 of pulse 0 at its knobs (mt_prune=True, K3):
      kernel against plain (tri/found identical, t/beta/gamma bit-equal),
      and the kernel with the prune against the kernel without it; the
-     segment's swept tiles alone (what the sweep grid takes of the call);
+     segment's swept tiles alone (the sweep, K2: against plain, with its
+     pairs and bound) and its candidate tiles alone (the candidate grid);
   b. the same with emit_shade=True (K4): shade bit-equal to the plain gather;
   c. moving main path: 8 pulses with refine=True; received > 0, finite,
-     K3 launches counted, a second run bit-identical, no replay-cap
-     overflow; ms/pulse and rays/s;
+     K3 launches and the sweep's calls and swept tiles counted, a second run
+     bit-identical, no replay-cap overflow; ms/pulse and rays/s;
   d. one moving pulse with shade_emit=True against the gather: identical
      received lanes, path rows and emit; K4 launches counted;
   e. one moving pulse refined against unrefined: every decision identical;
@@ -40,9 +42,10 @@ Phases (each line stamped with the card's name and power limit):
   f. terrain segment 1 with resident_cap=512 (K5): kernel against plain and
      against phase 2's kernel, bit for bit; the live set and the swept
      tiles; K1 and K5 timed in turns; then resident_cap=8, whose live set
-     overflows, so that every tile sweeps: bit-equal to the sweep-only
-     kernel, and to K1 up to exact t ties (the sweep visits the clusters in
-     another order, and a tie goes to the first visited);
+     overflows, so that every tile sweeps: against plain (with its pairs
+     and bound), bit-equal to the sweep-only kernel, and to K1 up to exact
+     t ties (the sweep visits the clusters in another order, and a tie goes
+     to the first visited);
   g. terrain segment 1 with mt_union=False (K6) and with cand_order="mask":
      each against plain; K6 bit-equal to phase 2, the mask order up to
      exact t ties; K1 and K6 in turns;
@@ -69,8 +72,9 @@ rate), which of the two binds, and the kernel's share of it; and the
 kernel's picoseconds per pair it evaluated.
 
 The line before the card line is a JSON object with the kernel's modes,
-their launches in the main paths, errors, times and bounds; the last line
-is the JSON result.
+their launches in the main paths, errors, times and bounds (the sweep,
+K2, with each of its three calls: terrain-20k sweep-only, the terrain
+overflow, the moving swept tiles); the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -251,6 +255,19 @@ def entry(name: str, replaces: str, launches: int, r: dict) -> dict:
             "ps_per_pair": 1e9 * r["ms"] / r["pairs"]}
 
 
+def sweep_calls(card: str, calls) -> list:
+    """The sweep's calls for its kernels entry, each stamped: time, plain
+    time, pairs, bound, share and ps per pair."""
+    out = []
+    for r in calls:
+        out.append({k: r[k] for k in ("what", "err", "ms", "plain_ms", "pairs", "bound_ms", "bound_by")}
+                   | {"ps_per_pair": 1e9 * r["ms"] / r["pairs"]})
+        stamp(card, f"K2 {r['what']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, {r['pairs']} "
+                    f"pairs, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                    f"({100 * r['bound_ms'] / r['ms']:.2f}%), {1e9 * r['ms'] / r['pairs']:.3f} ps/pair")
+    return out
+
+
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype.is_floating_point:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -352,6 +369,13 @@ def main() -> int:
         CT.mt_traverse.launches = 0
         for mode in CT.mt_traverse.mode_launches:
             CT.mt_traverse.mode_launches[mode] = 0
+        CT.mt_traverse.sweep_counts = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def sweep_counts():
+        """(calls that swept a tile, swept tiles) since reset_counts, as the
+        kernel counted them on the device."""
+        calls, tiles = CT.mt_traverse.sweep_counts.tolist()
+        return calls, tiles
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -359,14 +383,12 @@ def main() -> int:
     CT._load()
     stamp(card, f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.2f} s")
     occ = (ctypes.c_int * 3)()
-    for what, rt, st, cs in (("terrain", 512, 8, 128), ("moving", 512, 8, 1024)):
-        err = CT._load().mt_traverse_occupancy(rt, st, 16 * cs * 4, occ)
-        if err:
-            raise RuntimeError(f"occupancy query failed: cudaError {err}")
-        stamp(card, f"phase 1 occupancy ({what}: ray_tile {rt}, sub_tiles {st}, cluster_size "
-                    f"{cs}): candidate grid {occ[0]} blocks of {occ[1]} threads, "
-                    f"{occ[0] * occ[1] // 32} warps per SM; sweep grid alone {occ[2]} blocks, "
-                    f"{occ[2] * rt // 32} warps per SM")
+    err = CT._load().mt_traverse_occupancy(512, 8, occ)  # both paths' ray_tile and sub_tiles
+    if err:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    stamp(card, f"phase 1 occupancy (ray_tile 512, sub_tiles 8: both paths): blocks of {occ[0]} "
+                f"threads; candidate grid {occ[1]} blocks, {occ[1] * occ[0] // 32} warps per SM; "
+                f"sweep grid {occ[2]} blocks, {occ[2] * occ[0] // 32} warps per SM")
     # ---- 2. kernel against plain
     def segment1(world, **options):
         """CPI state and the segment-1 closest_hit_clustered arguments of
@@ -453,6 +475,7 @@ def main() -> int:
                                   candidates=0)[1:]
     k2 = check(s_args, s_knobs, "phase 2 sweep mode (candidates=0)")
     bounds([k2])
+    k2["what"] = "terrain-20k sweep-only (candidates=0)"
     del s_args
 
     # ---- 3. terrain main path
@@ -463,6 +486,7 @@ def main() -> int:
     sync()
     first_s = time.perf_counter() - t0
     launches = CT.mt_traverse.launches
+    t_sweeps, t_swept = sweep_counts()
     received = int((out.received >= 0).sum())
     if launches == 0:
         raise AssertionError("the terrain path never launched the traversal kernel")
@@ -483,7 +507,8 @@ def main() -> int:
     best_s = min(first_s, second_s)
     stamp(card, f"phase 3 terrain main path (refine=True): {P} pulses x {R} rays, {received} "
                 f"received lanes, {int(out.agg.emit.sum())} emitted paths, {launches} kernel "
-                f"launches; {1e3 * best_s / P:.1f} ms/pulse, {P * R / best_s:.4g} rays/s "
+                f"launches ({t_sweeps} of them swept {t_swept} tiles in all); "
+                f"{1e3 * best_s / P:.1f} ms/pulse, {P * R / best_s:.4g} rays/s "
                 f"(first run {first_s:.2f} s, second {second_s:.2f} s, bit-identical)")
     terrain_ms_pulse = 1e3 * best_s / P
     # ---- 4. one terrain pulse through the plain traversal, against the kernel
@@ -513,17 +538,39 @@ def main() -> int:
     ms_np = time_ms(lambda: CT.mt_traverse(inp, shape._replace(mt_prune=False)), 20)
     stamp(card, f"phase a: the kernel with the prune equals it without, bit for bit; without the "
                 f"prune {ms_np:.3f} ms per call")
-    # the swept tiles alone: what the sweep grid takes of the call
-    swept = torch.nonzero(inp.meta[:, 1] != 0).reshape(-1)
-    if swept.numel():
-        lanes = (swept[:, None] * shape.ray_tile + torch.arange(shape.ray_tile, device=dev)).reshape(-1)
-        sw_inp = inp._replace(origin=inp.origin[:, lanes].contiguous(),
-                              direction=inp.direction[:, lanes].contiguous(),
-                              tmin=inp.tmin[lanes].contiguous(),
-                              **{k: getattr(inp, k)[swept].contiguous() for k in ("cand", "meta", "bits", "ent")})
-        ms_sw = time_ms(lambda: CT.mt_traverse(sw_inp, shape), 5)
-        stamp(card, f"phase a: its {swept.numel()} swept tiles alone (the sweep grid) {ms_sw:.3f} ms per call")
-        del sw_inp
+    # the swept tiles alone (the sweep, K2) and the candidate tiles alone
+    # (the candidate grid): the two parts of the call
+    def tiles_of(sel):
+        lanes = (sel[:, None] * shape.ray_tile + torch.arange(shape.ray_tile, device=dev)).reshape(-1)
+        return inp._replace(origin=inp.origin[:, lanes].contiguous(),
+                            direction=inp.direction[:, lanes].contiguous(),
+                            tmin=inp.tmin[lanes].contiguous(),
+                            **{k: getattr(inp, k)[sel].contiguous() for k in ("cand", "meta", "bits", "ent")})
+
+    swept = inp.meta[:, 1] != 0
+    if not bool(swept.any()):
+        raise AssertionError("phase a: no tile of the moving segment 1 sweeps")
+    sw_inp = tiles_of(torch.nonzero(swept).reshape(-1))
+    got = CT.mt_traverse(sw_inp, shape)
+    ref, pairs, clusters = plain_counted(lambda: CT.mt_traverse_reference(sw_inp, shape), shape.cluster_size)
+    sync()
+    for name, a, b in zip(("t", "tri", "beta", "gamma", "stats"), got[:4] + got[5:], ref[:4] + ref[5:]):
+        if not bit_equal(a, b):
+            raise AssertionError(f"phase a swept tiles alone: {name} differs from the plain version")
+    f = ref[0] < 3.0e38
+    k2m = dict(what=f"moving segment 1, its {int(swept.sum())} swept tiles alone", pairs=pairs,
+               err=max(float((a[f] - b[f]).abs().max()) if bool(f.any()) else 0.0
+                       for a, b in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3]))),
+               ms=time_ms(lambda: CT.mt_traverse(sw_inp, shape), 20),
+               plain_ms=time_ms(lambda: CT.mt_traverse_reference(sw_inp, shape), 1),
+               **bound(sw_inp, shape, got[5], pairs, clusters))
+    cand_inp = tiles_of(torch.nonzero(~swept).reshape(-1))
+    ms_cand = time_ms(lambda: CT.mt_traverse(cand_inp, shape), 20)
+    stamp(card, f"phase a: its {int(swept.sum())} swept tiles alone (the sweep) {k2m['ms']:.3f} ms per "
+                f"call, bit-equal to plain with its counters ({pairs} pairs over {clusters} clusters, "
+                f"bound {k2m['bound_ms']:.4f} ms); its {int((~swept).sum())} candidate tiles alone (the "
+                f"candidate grid) {ms_cand:.3f} ms; the whole call {k3['ms']:.3f} ms")
+    del sw_inp, cand_inp, got, ref
 
     # ---- b. the same segment with the shade emit (K4)
     s_knobs = {**m_knobs, "emit_shade": True}
@@ -542,10 +589,13 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         k3_launches = CT.mt_traverse.mode_launches["K3"]
         m_launches = CT.mt_traverse.launches
+        k2_launches, m_swept = sweep_counts()
         counts = check_replay_overflow(mout, mcfg)
     m_received = int((mout.received >= 0).sum())
     if k3_launches == 0:
         raise AssertionError("the moving path never launched the kernel with the prune")
+    if k2_launches == 0:
+        raise AssertionError("the moving path never swept a tile")
     if m_received == 0 or (counts == 0).any():
         raise AssertionError(f"the moving path received too little: {counts.tolist()} lanes per pulse")
     for name in ("power", "doppler", "delay"):
@@ -565,7 +615,8 @@ def main() -> int:
                 f"{int(mbase.tri_verts.shape[0])} triangles, {m_received} received lanes "
                 f"({counts.min()}-{counts.max()} per pulse, cap {mcfg.replay_cap}), "
                 f"{int(mout.agg.emit.sum())} emitted paths, {m_launches} kernel launches "
-                f"({k3_launches} with the prune); {m_ms_pulse:.1f} ms/pulse, "
+                f"({k3_launches} with the prune; {k2_launches} swept {m_swept} tiles in all, "
+                f"{m_swept / P:.1f} a pulse); {m_ms_pulse:.1f} ms/pulse, "
                 f"{P * R / best_s:.4g} rays/s (first run {first_s:.2f} s, second "
                 f"{second_s:.2f} s, bit-identical)")
 
@@ -630,20 +681,21 @@ def main() -> int:
     stamp(card, f"phase f: bit-equal to phase 2's kernel; live set {n_live} clusters of the cap "
                 f"{RESIDENT_CAP}, {swept[1]} swept tiles as in phase 2; in turns K1 {t1a:.3f} ms, "
                 f"K5 {t5a:.3f} ms, K5 {t5b:.3f} ms, K1 {t1b:.3f} ms per call")
-    hit8, call8 = captured(hit_args, {**knobs, "resident_cap": 8})
+    k8 = check(hit_args, {**knobs, "resident_cap": 8}, "phase f terrain segment 1, resident_cap=8",
+               plain_reps=1)
     hit0 = CT.closest_hit_clustered(*hit_args, **{**knobs, "candidates": 0})
     sync()
-    compare_hits(hit8, hit0, "phase f resident_cap=8", against="the sweep-only kernel (candidates=0)")
-    ties = compare_ties(hit8, k1["hit"], "phase f resident_cap=8", "phase 2's kernel (K1)")
-    swept8 = int(call8[0].meta[:, 1].sum())
-    if swept8 != call8[0].meta.shape[0]:
+    compare_hits(k8["hit"], hit0, "phase f resident_cap=8", against="the sweep-only kernel (candidates=0)")
+    ties = compare_ties(k8["hit"], k1["hit"], "phase f resident_cap=8", "phase 2's kernel (K1)")
+    swept8 = int(k8["call"][0].meta[:, 1].sum())
+    if swept8 != k8["call"][0].meta.shape[0]:
         raise AssertionError(f"phase f resident_cap=8: {swept8} swept tiles, not every tile")
-    ms8 = time_ms(lambda: CT.mt_traverse(*call8), 10)
+    bounds([k8])
+    k8["what"] = f"terrain-1M segment 1, resident_cap=8 (live-set overflow, all {swept8} tiles swept)"
     stamp(card, f"phase f resident_cap=8: the live set overflows, all {swept8} tiles sweep; "
                 f"bit-equal to the sweep-only kernel, and to K1 but for {ties} lanes of an exact "
-                f"t tie that the sweep's visit order breaks the other way; kernel {ms8:.3f} ms "
-                f"per call")
-    del call8, hit8, hit0
+                f"t tie that the sweep's visit order breaks the other way")
+    del hit0
 
     # ---- g. terrain segment 1 with per-candidate windows (K6), and the mask order
     k6 = check(hit_args, {**knobs, "mt_union": False}, "phase g terrain segment 1, mt_union=False (K6)")
@@ -715,9 +767,14 @@ def main() -> int:
         except Exception as exc:  # the phase measures; it gates nothing
             stamp(card, f"phase j {what}: the profiler failed: {exc!r}")
     del base, batch, mbase, mbatch
+    k2_calls = [k2m, k2, k8]
     kernels = [
-        entry("mt_traverse K1/K2 (candidate windows, sweep)", "249", launches,
-              {**k1, "err": max(k1["err"], k2["err"])}),
+        entry("mt_traverse K1 (candidate windows)", "249", launches, k1),
+        # the sweep's main-path call: the moving segment's swept tiles; its
+        # launches are the moving CPI's calls that swept a tile
+        {**entry("mt_traverse K2 (sweep)", "568", k2_launches,
+                 {**k2m, "err": max(r["err"] for r in k2_calls), "bound_pairs": k2m["pairs"]}),
+         "swept_tiles": m_swept, "calls": sweep_calls(card, k2_calls)},
         entry("mt_traverse K3 (mt_prune)", "557", k3_launches, k3),
         entry("mt_traverse K4 (emit_shade)", "521", k4_launches, k4),
         entry(f"mt_traverse K5 (resident live pack, cap {RESIDENT_CAP})", "398", mode_runs["K5"], k5),

@@ -542,7 +542,6 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-_SMEM_MAX = 227 * 1024
 
 
 def _nvcc() -> str:
@@ -588,8 +587,10 @@ def _load():
     if _Kernel.lib is None:
         lib = ctypes.CDLL(str(build_kernel()))
         fn = lib.mt_traverse_launch
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.mt_traverse_sweep_words.argtypes = [ctypes.c_int] * 3
+        lib.mt_traverse_sweep_words.restype = ctypes.c_int
         _Kernel.lib = lib
     return _Kernel.lib
 
@@ -621,11 +622,11 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
         raise ValueError(f"ray_tile must be in [32, 1024] and divide the lanes; got {rt}, {lanes}")
     if not 1 <= shape.sub_tiles <= 32:
         raise ValueError(f"sub_tiles must be in [1, 32]; got {shape.sub_tiles}")
-    # a candidate block is one sub-block of rs rays, or one warp of 32 / rs
-    # sub-blocks; a window's columns are copied four at a time (16 bytes),
-    # so every pack row must start 16-B aligned
+    # a block of either grid is one sub-block of rs rays, or one warp of
+    # 32 / rs sub-blocks; a window's or cluster's columns are copied four at
+    # a time (16 bytes), so every pack row must start 16-B aligned
     rs = rt // shape.sub_tiles
-    if shape.k_max > 0 and rs < 32 and (32 % rs or rt % 32):
+    if rs < 32 and (32 % rs or rt % 32):
         raise ValueError(f"ray_tile / sub_tiles ({rs}) below 32 must divide 32, with ray_tile a "
                          f"multiple of 32; got ray_tile={rt}, sub_tiles={shape.sub_tiles}")
     if cs % 4 or n_tris % cs:
@@ -646,12 +647,8 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
     for name in ("tri_pack", "live_pack"):
         if getattr(inp, name).data_ptr() % 16:  # a view at an odd offset: the 16-byte copies need 16 B
             inp = inp._replace(**{name: getattr(inp, name).clone()})
-    # K6 is K1 with windows of one cluster and no tail; candidate windows
-    # are staged in chunks of fixed size, the sweep stages one cluster
+    # K6 is K1 with windows of one cluster and no tail
     g, tail = (shape.mt_group, shape.mt_tail) if shape.mt_union else (1, False)
-    smem = 16 * cs * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"a cluster of {smem} B exceeds the {_SMEM_MAX} B of shared memory")
     out_t = torch.empty(lanes, dtype=f32, device=dev)
     out_tri = torch.empty(lanes, dtype=i32, device=dev)
     out_b = torch.empty(lanes, dtype=f32, device=dev)
@@ -659,14 +656,20 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
     out_shade = torch.empty((10, lanes) if shape.emit_shade else (0,), dtype=f32, device=dev)
     out_stats = torch.empty((tiles, 2), dtype=i32, device=dev)
     lib = _load()
+    # the swept tiles' bitmaps of the groups and clusters their sub-blocks passed
+    sweep_bits = torch.zeros(lib.mt_traverse_sweep_words(tiles, cp, shape.group_size), dtype=i32,
+                             device=dev)
+    if mt_traverse.sweep_counts.device != dev:
+        mt_traverse.sweep_counts = torch.zeros(2, dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mt_traverse_launch(
             *(x.data_ptr() for x in inp), out_t.data_ptr(), out_tri.data_ptr(),
             out_b.data_ptr(), out_g.data_ptr(), out_shade.data_ptr(), out_stats.data_ptr(),
+            sweep_bits.data_ptr(), mt_traverse.sweep_counts.data_ptr(),
             tiles, rt, n_tris, cp, cs, shape.group_size, shape.super_size,
             shape.sub_tiles, shape.k_max, k_width, g, int(tail),
-            int(shape.mt_prune), int(shape.emit_shade), cap, smem, stream,
+            int(shape.mt_prune), int(shape.emit_shade), cap, stream,
         )
     if err != 0:
         raise RuntimeError(f"mt_traverse kernel launch failed: cudaError {err}")
@@ -682,16 +685,20 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
     hit, shade [10, lanes] under ``shape.emit_shade``, else None; and the
     per-tile work counters ``stats`` [tiles, 2] int32.
 
-    CUDA tensors launch ``csrc/mt_traverse.cu`` (the sweep grid, one block
-    per tile, and when ``k_max > 0`` beside it the candidate grid, one
-    block per ray sub-block) and count the call in ``mt_traverse.launches`` (every
+    CUDA tensors launch ``csrc/mt_traverse.cu`` (the sweep grid and, when
+    ``k_max > 0``, beside it the candidate grid, each one block per ray
+    sub-block) and count the call in ``mt_traverse.launches`` (every
     call) and ``mt_traverse.mode_launches`` (calls with the K3 prune, the
     K4 shade epilogue, the K5 live pack, the K6 per-candidate windows):
-    one count per call, whatever number of grids it launches.  CPU
-    tensors run ``mt_traverse_reference``.  ``mt_traverse.resident_overflows`` is a
-    0-d int32 tensor on the last K5 call's device that counts the
-    ``closest_hit_clustered`` calls whose live set overflowed the cap
-    (every tile then sweeps); it is added to without a host read.
+    one count per call, whatever number of grids it launches.  Which tiles
+    sweep (K2) is known only on the device, so the sweep counts itself
+    there: ``mt_traverse.sweep_counts`` is an int32 tensor [2] on the last
+    CUDA call's device that the kernel adds to, (calls that swept a tile,
+    swept tiles).  CPU tensors run ``mt_traverse_reference``.
+    ``mt_traverse.resident_overflows`` is a 0-d int32 tensor on the last K5
+    call's device that counts the ``closest_hit_clustered`` calls whose
+    live set overflowed the cap (every tile then sweeps).  Both are added
+    to without a host read.
     """
     kind = inp.origin.device.type
     if kind == "cuda":
@@ -704,6 +711,7 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
 mt_traverse.launches = 0
 mt_traverse.mode_launches = {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
 mt_traverse.resident_overflows = torch.zeros((), dtype=torch.int32)
+mt_traverse.sweep_counts = torch.zeros(2, dtype=torch.int32)
 
 
 def closest_hit_clustered(

@@ -1,7 +1,8 @@
 """The traversal's CUDA kernel against its plain PyTorch version, on the card
 (modes K1/K2, the K3 prune, the K4 shade emit, the K5 live pack and the K6
 per-candidate windows, and the work counters), at every mapping of ray
-sub-blocks onto the kernel's warps and blocks, and on an exact tie.
+sub-blocks onto the kernel's warps and blocks, and on exact ties: in the
+candidate windows and across clusters of the sweep's visit order.
 
 Marked ``gpu``: skips where there is no CUDA card (the plain version's tie
 rule is also checked on the CPU, unmarked).  This file imports
@@ -247,12 +248,13 @@ def test_cuda_kernel_sub_block_mapping(cuda_device, geom, mode):
             assert torch.equal(a, b), (what, name, (a != b).sum().item())
 
 
-def _tie_inputs(device, order, ray_tile, sub_tiles):
+def _tie_inputs(device, order, ray_tile, sub_tiles, tiles=2):
     """Three clusters of 128 columns that hold one triangle X three times:
     at columns 5 and 77 of cluster 0 and at column 3 of cluster 1 (every
     other column is all zeros, which never hits).  Each tile's candidate
-    list is ``order``, every sub-block gated in, entries 0.  Rays from the
-    origin into X."""
+    list is ``order``, every sub-block gated in, entries 0; the sweep
+    visits the clusters in ``order`` too (groups of one cluster, equal
+    boxes).  Rays from the origin into X."""
     cs, c = 128, 3
     f32 = torch.float32
     p0, p1, p2 = (torch.tensor(v, dtype=f32) for v in ([500.0, -50.0, -50.0],
@@ -265,7 +267,7 @@ def _tie_inputs(device, order, ray_tile, sub_tiles):
     pack = torch.zeros((16, c * cs), dtype=f32)
     for j in (5, 77, cs + 3):
         pack[:, j] = col
-    lanes = 2 * ray_tile
+    lanes = tiles * ray_tile
     rng = np.random.default_rng(7)
     d = np.stack([np.ones(lanes), rng.uniform(-0.05, 0.05, lanes), rng.uniform(-0.05, 0.05, lanes)])
     box = torch.tensor([[490.0, -60.0, -60.0]] * c), torch.tensor([[510.0, 70.0, 80.0]] * c)
@@ -274,9 +276,9 @@ def _tie_inputs(device, order, ray_tile, sub_tiles):
     t = lambda a, dt=f32: torch.as_tensor(a, dtype=dt).to(device).contiguous()
     inp = TCT.TraversalInputs(
         t(np.zeros((3, lanes))), t(d), t(np.full(lanes, 0.005)), t(pack), t(box[0]), t(box[1]),
-        t(box[0]), t(box[1]), t(box[0]), t(box[1]), t(np.arange(c), i32), t(np.arange(c), i32),
-        t(np.tile(order, (2, 1)), i32), t(np.tile([k, 0], (2, 1)), i32),
-        t(np.full((2, k), 2**sub_tiles - 1), i32), t(np.zeros((2, k)), i32),
+        t(box[0]), t(box[1]), t(box[0]), t(box[1]), t(list(order) + [2], i32), t(np.arange(c), i32),
+        t(np.tile(order, (tiles, 1)), i32), t(np.tile([k, 0], (tiles, 1)), i32),
+        t(np.full((tiles, k), 2**sub_tiles - 1), i32), t(np.zeros((tiles, k)), i32),
         t(np.zeros((0, 10))), t(np.zeros((16, 0))), t(np.zeros(0), i32),
     )
     return inp, cs
@@ -336,3 +338,126 @@ def test_plain_exact_tie_first_column_wins(window, order):
     base = mt_traverse_reference(inp, shape._replace(mt_group=1, mt_union=True))
     for a, b in zip((t, tri, beta, gamma), base[:4]):
         assert torch.equal(a, b)
+
+
+# The sweep (K2) runs one block per ray sub-block of a swept tile (or per
+# 32 / rs sub-blocks when rs < 32), each walking the hierarchy alone, beside
+# the candidate grid or alone (sweep-only).
+_SWEEP_GEOMS = {"rs16": (128, 8), "rs32": (128, 4), "rs64": (512, 8), "rs128": (512, 4)}
+
+
+def _captured(args, kw):
+    """The phase-2 operands closest_hit_clustered hands to the traversal."""
+    calls = []
+    closest_hit_clustered(*args, traverse=lambda inp, shape: calls.append((inp, shape))
+                          or mt_traverse_reference(inp, shape), **kw)
+    return calls[0]
+
+
+def _with_swept(inp, swept):
+    """inp with meta's overflow flag set on the tiles in ``swept`` only."""
+    meta = inp.meta.clone()
+    meta[:, 1] = 0
+    meta[swept, 1] = 1
+    return inp._replace(meta=meta)
+
+
+def _assert_bit_equal(got, ref):
+    for a, b, name in zip(got, ref, ("t", "tri", "beta", "gamma", "shade", "stats")):
+        if b is not None:
+            assert torch.equal(a, b), (name, (a != b).sum().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("swept", ["one_tile", "every_tile", "sweep_only"])
+@pytest.mark.parametrize("cs", [128, 1024])
+@pytest.mark.parametrize("geom", sorted(_SWEEP_GEOMS))
+def test_cuda_sweep_mapping(cuda_device, geom, cs, swept):
+    """The sweep at every mapping of sub-blocks onto warps (rs below, at and
+    above 32), at 128- and 1024-column clusters (one and eight staged
+    chunks), with one swept tile of three beside candidate tiles, with every
+    one of 40 tiles swept in a candidate call, and sweep-only: hits and work
+    counters bit-equal to the plain version, and the sweep's own device
+    counts of calls and swept tiles."""
+    rt, st = _SWEEP_GEOMS[geom]
+    sc = _scene(cuda_device, subdiv=4, cs=cs)
+    tiles = 3 if swept == "one_tile" else 40
+    args = (*_mixed_rays(cuda_device, tiles * rt), sc.tri_pack, sc.aabb_mn, sc.aabb_mx,
+            torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=cs, ray_tile=rt, sub_tiles=st, group_size=4, super_size=1,
+              candidates=0 if swept == "sweep_only" else 48, mt_group=1)
+    inp, shape = _captured(args, kw)
+    if swept != "sweep_only":
+        inp = _with_swept(inp, [1] if swept == "one_tile" else slice(None))
+    n_swept = int((inp.meta[:, 1] != 0).sum())
+    counts = TCT.mt_traverse.sweep_counts.to(cuda_device).clone()
+    got = TCT.mt_traverse(inp, shape)
+    torch.cuda.synchronize()
+    ref = mt_traverse_reference(inp, shape)
+    assert int((ref[0] < 3.0e38).sum()) > tiles * rt // 8
+    _assert_bit_equal(got, ref)
+    assert TCT.mt_traverse.sweep_counts.tolist() == [int(counts[0]) + 1, int(counts[1]) + n_swept]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["overflow", "sweep_only"])
+def test_cuda_sweep_sub_blocks_diverge(cuda_device, call):
+    """Sub-blocks of one tile aimed at the sphere, at the plate, up into
+    nothing and everywhere: they pass different groups (so one walks whole
+    groups that another skips) and the kernel still equals the plain
+    version, hits and work counters (the union of what the sub-blocks
+    passed), bit for bit."""
+    sc = _scene(cuda_device)
+    rng = np.random.default_rng(5)
+    rs = 32
+    d = np.zeros((3, 4, rs), np.float32)
+    d[:, 0] = np.stack([np.ones(rs), rng.uniform(-0.05, 0.05, rs), rng.uniform(-0.05, 0.05, rs)])
+    d[:, 1] = (np.array([300.0, 100.0, 0.0])[:, None] + rng.uniform(-60, 60, (3, rs))) / 300.0
+    d[:, 2] = np.stack([rng.uniform(-0.1, 0.1, rs), rng.uniform(-0.1, 0.1, rs), np.ones(rs)])
+    d[:, 3] = rng.normal(size=(3, rs))
+    d = np.tile(d.reshape(3, 4 * rs), (1, 3))
+    t = lambda a: torch.as_tensor(a, device=cuda_device)
+    args = (t(np.zeros_like(d)), t(d), t(np.full(d.shape[1], 0.005, np.float32)), sc.tri_pack,
+            sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=CS, ray_tile=RT, sub_tiles=4, group_size=2, super_size=2,
+              candidates=0 if call == "sweep_only" else 16, mt_group=4, p1_fanout=2, p1_super_k=1)
+    inp, shape = _captured(args, kw)
+    assert bool((inp.meta[:, 1] != 0).all())
+    big = torch.full((rs, 1), 3.0e38, device=cuda_device)
+    o, dd, tmin = inp.origin[:, :rs], inp.direction, inp.tmin[:rs]
+    passed = [TCT._slab_rays(o, dd[:, k * rs:(k + 1) * rs], tmin, torch.ones(rs, dtype=torch.bool,
+                                                                                 device=cuda_device),
+                             inp.g_mn, inp.g_mx, big).any(0) for k in range(4)]
+    # the plate's and the upward sub-blocks are gated out of groups that
+    # the sphere's enters, and in at others
+    for k in (1, 2):
+        assert bool((passed[0] & ~passed[k]).any()) and bool(passed[k].any())
+    got = TCT.mt_traverse(inp, shape)
+    torch.cuda.synchronize()
+    ref = mt_traverse_reference(inp, shape)
+    assert int((ref[0] < 3.0e38).sum()) > 60
+    _assert_bit_equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["few_swept", "every_tile_swept", "sweep_only"])
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["near_first", "far_first"])
+@pytest.mark.parametrize("ray_tile, sub_tiles", [(128, 8), (128, 4), (512, 8)])
+def test_cuda_sweep_exact_tie_first_visited_wins(cuda_device, call, order, ray_tile, sub_tiles):
+    """An exact t tie across two clusters in the sweep's visit order: the
+    first column of the first cluster visited wins, in the kernel as in the
+    plain version (guards the slices' merge on (t, scan position) across
+    clusters), in one swept tile beside a candidate tile, in 40 swept tiles
+    of a candidate call and in a sweep-only call of 40 tiles."""
+    tiles = 2 if call == "few_swept" else 40
+    inp, cs = _tie_inputs(cuda_device, list(order), ray_tile, sub_tiles, tiles)
+    inp = _with_swept(inp, [0] if call == "few_swept" else slice(None))
+    shape = TCT.TraversalShape(ray_tile, cs, 1, 1, sub_tiles, 0 if call == "sweep_only" else 2,
+                               1, False)
+    got = TCT.mt_traverse(inp, shape)
+    torch.cuda.synchronize()
+    ref = mt_traverse_reference(inp, shape)
+    found = ref[0] < 3.0e38
+    assert int(found.sum()) > ray_tile
+    assert bool((ref[1][found] == (5 if order[0] == 0 else cs + 3)).all())
+    _assert_bit_equal(got, ref)

@@ -6,9 +6,12 @@ Drives the port's main paths through their public entry points and fails
 with a non-zero exit at the first error: the production CPI of the
 1M-triangle terrain (BASELINE config 4), the same CPI with the
 traversal's live-cluster pack (K5, ``bench.py --resident-cap``) and with
-per-candidate windows (K6, ``--no-mt-union``), and the moving-shell CPI of
+per-candidate windows (K6, ``--no-mt-union``), the moving-shell CPI of
 four 1.31M-triangle icospheres (BASELINE config 2, ``bench.py --scene
-moving``).  There is no CPU fallback: without a CUDA card it exits
+moving``), and the default entry points: the f64 brute-force engine and
+parity preset on the sphere scene (config 1), held to the 1e-6 contract
+against the production preset, and the sequential driver on README.md's
+quick start.  There is no CPU fallback: without a CUDA card it exits
 non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
@@ -58,7 +61,24 @@ Phases (each line stamped with the card's name and power limit):
   j. profile: torch.profiler over one warm pulse of each main path (the
      terrain at the production preset, the moving shells at MOVING_KNOBS):
      device time against the wall, the kernel's share of device time, the
-     five largest operators by device time.  Printed only; it gates nothing.
+     five largest operators by device time.  Printed only; it gates nothing;
+  k. the default entry point: prepare_cpi(dtype=float64) with no options
+     (the brute-force engine) and with preset="parity" on the sphere scene
+     (BASELINE config 1, its icosphere cut to 20,480 triangles), one pulse
+     at a 63^3 fan: a second run (through the pulse function, under the
+     profiler) bit-identical, ms/pulse, pairs/s, device launches; the
+     float32 defaults through run_all_cpi; segment 1 on 4,096 rays against
+     the port on the CPU (tri/found identical, t/beta/gamma within 1e-12);
+  l. the 1e-6 power/phase contract on the card: the production preset (the
+     f32 kernel with the sphere knobs, and the f64 replay) against phase k's
+     f64 trace: received lanes and path rows identical (a lane that differs
+     is printed with the f64 engine's barycentrics and passes only if, at
+     the first chain step where the two sides hit another triangle, the
+     f64 hit lies within 1e-5 of its triangle's edge), per-lane power, aggregated power and phase
+     within 1e-6; the same on the moving scene at subdivision 5, 1 pulse;
+  m. README.md's quick start (sequential driver rts_tpu_torch.sim.run, f64
+     brute force, 64 pulses) on the card against the same run on the CPU:
+     the same responses, power, delay, Doppler and phase within 1e-9.
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -106,6 +126,17 @@ MOVING_KNOBS = dict(accel="cluster", cluster_size=1024, candidates=128, mt_group
                     p1_super_k=32, mt_prune=True, ray_tile=512, sub_tiles=8, mt_tail=True,
                     compact_narrow=-1, refine=True, replay_cap=256, agg_cap=1024)
 RESIDENT_CAP = 512  # K5's live pack: 512 x 128 x 16 x 4 B = 4.2 MB, room for every segment
+# BASELINE config 1 (bench.py --scene sphere) for the brute-force phases k
+# and l, its icosphere cut from the bench's 1.3M triangles to subdivision 5
+# (20,480): brute force costs rays x triangles pairs a segment.
+SPHERE_SUBDIV = 5
+# the sphere scene's traversal knobs (bench.py:41-42) for phase l's
+# production side, with the moving scene's replay cap
+SPHERE_KNOBS = dict(cluster_size=1024, candidates=128, mt_group=1, p1_fanout=16, p1_super_k=32,
+                    mt_prune=True, replay_cap=256)
+CPU_CHECK_RAYS = 4096  # phase k's segment-1 rays held to the port on the CPU
+EDGE_TIE = 1e-5  # phase l: a lane whose decision differs must pass this close to a triangle edge
+README_PULSES = 64  # phase m: README.md's quick start as written
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
 # outside the tensor cores, and the HBM rate.
 FP32_PEAK = 67e12
@@ -145,11 +176,41 @@ def terrain_world(pulses: int, tris: int):
     return w
 
 
-def moving_world(pulses: int):
+def sphere_world(pulses: int):
+    """BASELINE config 1 (bench.py --scene sphere, bench.py:186-196): one
+    icosphere of 60 m radius at 900 m receding at 50 m/s, a monostatic
+    radar at the origin with a 25 m capture sphere."""
+    from rts_tpu_torch.sim import Path, RadarSignal, Receiver, Target, Transmitter, World
+
+    w = World()
+    w.add(Transmitter(path=Path.fixed(0, 0, 0), wave=RadarSignal(carrier=10e9), pulse_count=pulses,
+                      prf=1000.0, tx_span=(0.15, 0.15, 0.0)))
+    w.add(Receiver(path=Path.fixed(0, 0, 0), sphere=(25.0, 1.2, 1.2)))
+    w.add(Target(path=Path.linear([(0.0, (900.0, 0.0, 0.0)), (1.0, (950.0, 0.0, 0.0))]), shape="sphere",
+                 sphere_params=(SPHERE_SUBDIV, 60.0), refl_coeff=0.9))
+    return w
+
+
+def readme_world():
+    """README.md's quick-start world (README.md:50-57): a 10 m icosphere
+    (5,120 triangles) receding from 900 m, 64 pulses, a monostatic radar."""
+    from rts_tpu_torch.sim import Path, RadarSignal, Receiver, Target, Transmitter, World
+
+    w = World()
+    w.add(Transmitter(path=Path.fixed(0, 0, 0), wave=RadarSignal(carrier=10e9), pulse_count=README_PULSES,
+                      prf=1000.0, tx_span=(0.1, 0.1, 0.0)))
+    w.add(Receiver(path=Path.fixed(0, 0, 0), sphere=(5.0, 1.0, 1.0)))
+    w.add(Target(shape="sphere", sphere_params=(4, 10.0),
+                 path=Path.linear([(0.0, (900, 0, 0)), (1.0, (950, 0, 0))]), refl_coeff=0.9))
+    return w
+
+
+def moving_world(pulses: int, subdiv: int | None = None):
     """BASELINE config 2 (bench.py --scene moving): four icospheres of 60 m
-    radius on linear radial paths through the nodes 12, 9, 15 and 3 of a
-    3^3 fan (directions every odd fan contains), a monostatic radar at the
-    origin with a 25 m capture sphere."""
+    radius (subdivision ``subdiv``, MOVING_SUBDIV unless given) on linear
+    radial paths through the nodes 12, 9, 15 and 3 of a 3^3 fan
+    (directions every odd fan contains), a monostatic radar at the origin
+    with a 25 m capture sphere."""
     import numpy as np
 
     from rts_tpu_torch.engine.fan import generate_fan_c
@@ -164,7 +225,7 @@ def moving_world(pulses: int):
                              (3, 2600.0, 30.0)):
         d = nodes[node] / np.linalg.norm(nodes[node])
         w.add(Target(path=Path.linear([(0.0, tuple(rng * d)), (1.0, tuple((rng + speed) * d))]),
-                     shape="sphere", sphere_params=(MOVING_SUBDIV, 60.0), refl_coeff=0.9))
+                     shape="sphere", sphere_params=(subdiv or MOVING_SUBDIV, 60.0), refl_coeff=0.9))
     return w
 
 
@@ -313,6 +374,31 @@ def same_result(a, b) -> bool:
     return bit_equal(a, b)
 
 
+def brute_index(cl_base, brute_base) -> torch.Tensor:
+    """Each triangle of a cluster-reordered scene base, as its index in the
+    brute-force engine's base (original order), matched on its target and
+    its corners; -1 for padding."""
+    def keys(base):
+        corners = base.tri_verts.to(torch.float32).reshape(-1, 9).cpu().numpy()
+        return [(int(t), c.tobytes()) for t, c in zip(base.tri_target.tolist(), corners)]
+
+    where = {k: j for j, k in enumerate(keys(brute_base))}
+    return torch.tensor([where[k] if k[0] >= 0 else -1 for k in keys(cl_base)], dtype=torch.int64)
+
+
+def first_pulse(res):
+    """Pulse 0 of a result stacked over pulses (nested named tuples)."""
+    if isinstance(res, tuple):
+        return type(res)(*(first_pulse(x) for x in res))
+    return res[0]
+
+
+def device_us(e) -> float:
+    """An event's device time in microseconds (the name torch.profiler
+    gives it depends on the version)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def profile_pulse(card: str, what: str, pulse) -> None:
     """Phase j: torch.profiler over one warm call of ``pulse`` (one pulse of
     a main path): device time against the wall, the traversal kernel's
@@ -327,23 +413,277 @@ def profile_pulse(card: str, what: str, pulse) -> None:
         pulse()
         sync()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
     # device time is counted on the device's own events (kernels, copies);
     # an operator's self device time is the same time seen from the host
     on_device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
     ops = [e for e in events if getattr(e, "device_type", None) != DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in on_device) / 1e3
+    busy_ms = sum(device_us(e) for e in on_device) / 1e3
     if busy_ms == 0:
         stamp(card, f"phase j {what}: the profiler recorded no device time ({wall_ms:.1f} ms wall)")
         return
-    kern_ms = sum(dev_us(e) for e in on_device if "cand_kernel" in e.key or "sweep_kernel" in e.key) / 1e3
+    kern_ms = sum(device_us(e) for e in on_device if "cand_kernel" in e.key or "sweep_kernel" in e.key) / 1e3
     stamp(card, f"phase j {what}: one warm pulse, {wall_ms:.1f} ms wall under the profiler, "
                 f"{busy_ms:.1f} ms of device time ({100 * busy_ms / wall_ms:.1f}% of the wall; the "
                 f"two traversal grids may overlap); the traversal kernel {kern_ms:.2f} ms "
                 f"({100 * kern_ms / busy_ms:.1f}% of device time); the largest operators by device time:")
-    for e in sorted(ops, key=dev_us, reverse=True)[:5]:
-        stamp(card, f"phase j {what}:   {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    for e in sorted(ops, key=device_us, reverse=True)[:5]:
+        stamp(card, f"phase j {what}:   {device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+
+def device_launches(fn):
+    """(kernels and copies the device ran, their device time in ms) in one
+    call of fn, by torch.profiler; (None, None) when the profiler recorded
+    no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    on_device = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not on_device:
+        return None, None
+    return sum(e.count for e in on_device), sum(device_us(e) for e in on_device) / 1e3
+
+
+def brute_phases(card: str, dev, params) -> None:
+    """Phases k, l and m: the brute-force engine, the f64 parity engine and
+    the sequential driver, the port's default entry points."""
+    from rts_tpu_torch import Parameters
+    from rts_tpu_torch.core.constants import SCENE_EPS
+    from rts_tpu_torch.engine import wavefront as W
+    from rts_tpu_torch.engine.animate import animate_scene
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
+    from rts_tpu_torch.engine.fan import generate_fan_c
+    from rts_tpu_torch.engine.intersect import closest_hit_bruteforce
+    from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.sim import prepare_cpi, run, run_all_cpi
+
+    f64 = torch.float64
+    t_k = time.perf_counter()
+
+    def f64_pulse(state, p):
+        """Pulse p of an f64 brute-force CPI through the pulse function
+        trace_cpi runs: (its trace, per-lane power, aggregate, each
+        segment's closest hits)."""
+        hits = []
+        inner = W.closest_hit_bruteforce
+
+        def keeping(*a, **kw):
+            hits.append(inner(*a, **kw))
+            return hits[-1]
+
+        W.closest_hit_bruteforce = keeping
+        try:
+            one, agg = make_pulse_fn(state[0], state[2], state[3])
+            res, pw, dp, dl = one(*pulse_args(state[1], p))
+            return res, pw, agg(res, pw, dp, dl), hits
+        finally:
+            W.closest_hit_bruteforce = inner
+
+    # ---- k. the brute-force engine at full width, f64, bare defaults and parity
+    brute = {}
+    for what, options in (("bare defaults", {}), ("preset='parity'", {"preset": "parity"})):
+        t0 = time.perf_counter()
+        state = prepare_cpi(sphere_world(1), params, dtype=f64, device=dev, **options)
+        prep_s = time.perf_counter() - t0
+        base, batch, cfg, spec = state
+        if cfg.accel != "brute" or base.tri_verts.dtype != f64 or base.tri_verts.device.type != dev.type:
+            raise AssertionError(f"phase k {what}: not the f64 brute-force engine on {dev}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = []
+        for _ in range(1 if brute else 2):  # the first call of all pays cuBLAS's and the allocator's start-up
+            sync()
+            t0 = time.perf_counter()
+            out = trace_cpi(*state)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        # the second run, under the profiler, through trace_cpi's pulse
+        # function: it keeps the trace that phase l holds the contract to
+        again = []
+        t0 = time.perf_counter()
+        launches, dev_ms = device_launches(lambda: again.append(f64_pulse(state, 0)))
+        prof_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if not same_result(first_pulse(out), again[0][2]):
+            raise AssertionError(f"phase k {what}: a second run differs: not deterministic")
+        r = cfg.rays_per_fan
+        received = int((out.received >= 0).sum())
+        if tuple(out.received.shape) != (1, r) or received == 0:
+            raise AssertionError(f"phase k {what}: {received} lanes received, shape {tuple(out.received.shape)}")
+        if not bool(torch.isfinite(out.power).all() and torch.isfinite(out.agg.power).all()):
+            raise AssertionError(f"phase k {what}: non-finite power")
+        n_tris = int(base.tri_verts.shape[0])
+        chunk = min(cfg.tri_chunk, n_tris)
+        pairs = cfg.num_segments * r * (-(-n_tris // chunk) * chunk)
+        seen = ("not measured (the profiler recorded no device event)" if launches is None else
+                f"{launches} device launches ({launches / (cfg.num_segments * -(-n_tris // chunk)):.1f} a "
+                f"chunk), {dev_ms:.1f} ms of device time under the profiler ({prof_s:.1f} s of wall, the "
+                f"profiler's own work included)")
+        first = f", the first run of all, with start-up, {1e3 * secs[0]:.1f}" if len(secs) == 2 else ""
+        stamp(card, f"phase k {what}: f64 brute force, {n_tris} triangles x {r} rays x "
+                    f"{cfg.num_segments} segments, chunks of {chunk}; {received} received lanes, "
+                    f"{int(out.agg.emit.sum())} emitted paths; {1e3 * secs[-1]:.1f} ms/pulse{first}; "
+                    f"bit-identical to a second run; {pairs / secs[-1]:.4g} pairs/s; {seen}; peak device "
+                    f"memory {peak_gb:.2f} GB (the tensors earlier phases hold included); prepare_cpi "
+                    f"{prep_s:.2f} s")
+        brute[what] = state, again[0]
+    del out, again
+    # no options at all (float32 brute force), through run_all_cpi
+    outs = run_all_cpi(sphere_world(1), params, device=dev, attach_responses=False)
+    out32 = outs[0]
+    if len(outs) != 1 or out32.power.dtype != torch.float32 or out32.power.device.type != dev.type:
+        raise AssertionError(f"phase k run_all_cpi (no options): {len(outs)} results, {out32.power.dtype} "
+                             f"on {out32.power.device}")
+    if not (bool(torch.isfinite(out32.power).all()) and int((out32.received >= 0).sum()) > 0):
+        raise AssertionError("phase k run_all_cpi (no options): nothing received, or non-finite power")
+    rec64 = brute["bare defaults"][1][0].received
+    stamp(card, f"phase k run_all_cpi with no options (prepare_cpi's defaults: float32 brute force): "
+                f"{int((out32.received >= 0).sum())} received lanes; "
+                f"{int((out32.received[0] != rec64).sum())} lanes received otherwise than by the f64 engine")
+    del outs, out32
+    # segment 1 on the card against the port on the CPU
+    base, batch, cfg, spec = brute["bare defaults"][0]
+    scene = animate_scene(base, batch.rot[0], batch.pos[0], batch.vel[0])
+    fan = generate_fan_c(cfg.num_rays, (batch.tx_dir[0, 0], batch.tx_dir[0, 1]), spec.tx_span, dtype=f64,
+                         device=dev)
+    n = min(CPU_CHECK_RAYS, fan.shape[1])
+    sel = torch.linspace(0, fan.shape[1] - 1, n, device=dev).round().long()
+    d = fan[:, sel].T.contiguous()
+    o = batch.tx_origin[0][None].expand(n, 3).contiguous()
+    tmin = torch.full((n,), SCENE_EPS, dtype=f64, device=dev)
+    fields = (scene.tri_p0, scene.tri_e0, scene.tri_e1, scene.tri_n, scene.tri_c1, scene.tri_c0, scene.tri_np0)
+    got = closest_hit_bruteforce(o, d, tmin, *fields, tri_chunk=cfg.tri_chunk)
+    ref = closest_hit_bruteforce(o.cpu(), d.cpu(), tmin.cpu(), *(a.cpu() for a in fields), tri_chunk=cfg.tri_chunk)
+    for name in ("found", "tri"):
+        if not torch.equal(getattr(got, name).cpu(), getattr(ref, name)):
+            raise AssertionError(f"phase k: segment 1 {name} differs between the card and the CPU")
+    f = ref.found
+    err = max(float(((getattr(got, k).cpu()[f] - getattr(ref, k)[f]).abs() / getattr(ref, k)[f].abs().clamp(min=1.0)
+                     ).max()) if bool(f.any()) else 0.0 for k in ("t", "beta", "gamma"))
+    if err > 1e-12:
+        raise AssertionError(f"phase k: segment 1 t/beta/gamma differ by {err:.3e} between the card and the CPU")
+    stamp(card, f"phase k: segment 1, {n} rays ({int(f.sum())} hits): tri/found identical on the card and "
+                f"the CPU, t/beta/gamma within {err:.3e} (relative; absolute below 1)")
+    del scene, fan, got, ref
+    t_l = time.perf_counter()
+
+    # ---- l. the 1e-6 power/phase contract on the card: the production
+    # preset (f32 kernel + f64 replay) against the card's own f64 engine
+    def divergence(seq64, seq32, hits, lane):
+        """(chain step, the f64 hit's distance to its triangle's nearest
+        edge) at the first step where the two sides' chains of triangles
+        part; the distance is inf where the f64 side missed there or the
+        chains do not part (a decision that no triangle edge explains)."""
+        seq64, seq32 = seq64[:, lane], seq32[:, lane]
+        steps = torch.nonzero(seq64 != seq32).reshape(-1).tolist()
+        if not steps or int(seq64[steps[0]]) < 0:
+            return (steps or [None])[0], float("inf")
+        c = steps[0]
+        h = hits[c]  # reflections only: chain step c is segment c's hit
+        if int(h.tri[lane]) != int(seq64[c]):
+            raise AssertionError(f"phase l: lane {lane}'s chain step {c} is not segment {c}'s hit")
+        b, g = float(h.beta[lane]), float(h.gamma[lane])
+        return c, min(b, g, 1.0 - b - g)
+
+    def contract(what, f64_base, f64_pulses, prod_state):
+        to_brute = brute_index(prod_state[0], f64_base).to(dev)
+        CT.mt_traverse.launches = 0
+        worst = dict(power=0.0, agg_power=0.0, phase=0.0)
+        compared = ties = parted = 0
+        for p, (res64, pw64, out64, hits) in enumerate(f64_pulses):
+            one, agg = make_pulse_fn(prod_state[0], prod_state[2], prod_state[3])
+            res32, pw32, dp32, dl32 = one(*pulse_args(prod_state[1], p))
+            out32 = agg(res32, pw32, dp32, dl32)
+            n_rec = int((res32.received >= 0).sum())
+            if n_rec > prod_state[2].replay_cap:
+                raise AssertionError(f"phase l {what}: {n_rec} lanes received, above the replay cap "
+                                     f"{prod_state[2].replay_cap}")
+            differ = ((res64.received != res32.received) | (res64.path != res32.path).any(0)
+                      | (res64.refl_depth != res32.refl_depth))
+            seq32 = torch.where(res32.tri_seq >= 0, to_brute[res32.tri_seq.clamp(min=0).long()], -1)
+            parted += int(((seq32 != res64.tri_seq).any(0) & ~differ).sum())
+            for lane in torch.nonzero(differ).reshape(-1).tolist():
+                step, edge = divergence(res64.tri_seq, seq32, hits, lane)
+                if ties < 20 or edge > EDGE_TIE:  # the first 20, and any that fails
+                    chain = [(s_, int(h.tri[lane]), float(h.beta[lane]), float(h.gamma[lane]))
+                             for s_, h in enumerate(hits) if bool(h.found[lane])]
+                    stamp(card, f"phase l {what} pulse {p} lane {lane}: received {int(res64.received[lane])} "
+                                f"(f64) / {int(res32.received[lane])} (production), path "
+                                f"{res64.path[:, lane].tolist()} / {res32.path[:, lane].tolist()}; the f64 hits "
+                                f"(segment, triangle, beta, gamma) {chain}; the chains part at step {step}, "
+                                f"where the f64 hit lies {edge:.3e} from its triangle's nearest edge")
+                if edge > EDGE_TIE:
+                    raise AssertionError(f"phase l {what}: lane {lane}'s decision differs {edge:.3e} from "
+                                         f"the triangle edge where the chains part (more than {EDGE_TIE})")
+                ties += 1
+            # compare the groups no differing lane belongs to
+            ok = (res64.received >= 0) & ~differ
+            for o_ in (out64, out32):
+                ok &= ~torch.isin(o_.agg.path_match, o_.agg.path_match[differ])
+            rel = lambda a, b: float((a[ok].double() / b[ok].double() - 1.0).abs().max()) if bool(ok.any()) else 0.0
+            worst["power"] = max(worst["power"], rel(pw32, pw64))
+            worst["agg_power"] = max(worst["agg_power"], rel(out32.agg.power, out64.agg.power))
+            ph = (out32.agg.phase.double() + out32.agg.phase_lo.double() - out64.agg.phase - out64.agg.phase_lo).abs()
+            ph = torch.minimum(ph, 2 * math.pi - ph)[ok]
+            worst["phase"] = max(worst["phase"], float(ph.max()) if ph.numel() else 0.0)
+            compared += int(ok.sum())
+        if CT.mt_traverse.launches == 0:
+            raise AssertionError(f"phase l {what}: the production side never launched the traversal kernel")
+        if compared == 0:
+            raise AssertionError(f"phase l {what}: no received lane to compare")
+        stamp(card, f"phase l {what}: {len(f64_pulses)} pulse(s), production preset (f32 kernel, "
+                    f"{CT.mt_traverse.launches} launches, + f64 replay) against the card's f64 brute-force "
+                    f"engine: decisions identical but for {ties} printed edge-tie lanes (on {parted} more lanes "
+                    f"the two chains hit other triangles, to the same decisions); on {compared} received "
+                    f"lanes the largest error is power {worst['power']:.3e}, aggregated power "
+                    f"{worst['agg_power']:.3e} (relative), phase {worst['phase']:.3e} rad")
+        if max(worst.values()) >= 1e-6:
+            raise AssertionError(f"phase l {what}: the 1e-6 power/phase contract fails: {worst}")
+
+    prod = prepare_cpi(sphere_world(1), params, preset="production", device=dev, **SPHERE_KNOBS)
+    contract("sphere (config 1)", brute["bare defaults"][0][0], [brute["bare defaults"][1]], prod)
+    del prod, brute
+    moving64 = prepare_cpi(moving_world(1, subdiv=SPHERE_SUBDIV), params, dtype=f64, device=dev)
+    moving32 = prepare_cpi(moving_world(1, subdiv=SPHERE_SUBDIV), params, device=dev, **MOVING_KNOBS)
+    contract(f"moving (config 2, subdivision {SPHERE_SUBDIV})", moving64[0], [f64_pulse(moving64, 0)], moving32)
+    del moving64, moving32
+    t_m = time.perf_counter()
+
+    # ---- m. README.md's quick start through the sequential driver, card against CPU
+    rparams = Parameters(num_rays=9, max_refl_depth=2)
+    worlds, sums, secs = [], [], []
+    for where in (dev, "cpu"):
+        w = readme_world()
+        sync()
+        t0 = time.perf_counter()
+        sums.append(run(w, rparams, device=where))
+        sync()
+        secs.append(time.perf_counter() - t0)
+        worlds.append(w)
+    key = lambda s_: [(p.pulse, p.received_rays, p.responses) for p in s_.pulses]
+    if key(sums[0]) != key(sums[1]) or sums[0].total_responses == 0:
+        raise AssertionError("phase m: the card and the CPU received or responded differently")
+    errs = dict(power=0.0, delay=0.0, doppler=0.0, phase=0.0)
+    for rx_card, rx_cpu in zip(*(w.receivers for w in worlds)):
+        if len(rx_card.responses) != len(rx_cpu.responses):
+            raise AssertionError("phase m: a receiver collected another number of responses")
+        for a, b in zip(rx_card.responses, rx_cpu.responses):
+            a, b = a.points[0], b.points[0]
+            for k in errs:
+                errs[k] = max(errs[k], abs(getattr(a, k) - getattr(b, k)) / max(abs(getattr(b, k)), 1e-300
+                                                                                 if k != "phase" else 1.0))
+    stamp(card, f"phase m README quick start (run, f64 brute force): {README_PULSES} pulses x 9^3 rays, "
+                f"{sums[0].total_received} received lanes, {sums[0].total_responses} responses, identical "
+                f"counts on the card and the CPU; largest relative difference power {errs['power']:.3e}, "
+                f"delay {errs['delay']:.3e}, Doppler {errs['doppler']:.3e}, phase {errs['phase']:.3e} "
+                f"(absolute below 1 rad); card {1e3 * secs[0] / README_PULSES:.1f} ms/pulse, CPU "
+                f"{1e3 * secs[1] / README_PULSES:.1f} ms/pulse (host scene rebuild included)")
+    if max(errs.values()) > 1e-9:
+        raise AssertionError(f"phase m: the card's responses differ from the CPU's by more than 1e-9: {errs}")
+    t_end = time.perf_counter()
+    stamp(card, f"phases k, l, m: {t_l - t_k:.1f} s, {t_m - t_l:.1f} s, {t_end - t_m:.1f} s")
 
 
 def main() -> int:
@@ -767,6 +1107,7 @@ def main() -> int:
         except Exception as exc:  # the phase measures; it gates nothing
             stamp(card, f"phase j {what}: the profiler failed: {exc!r}")
     del base, batch, mbase, mbatch
+    brute_phases(card, dev, params)
     k2_calls = [k2m, k2, k8]
     kernels = [
         entry("mt_traverse K1 (candidate windows)", "249", launches, k1),

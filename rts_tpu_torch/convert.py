@@ -16,7 +16,7 @@ import torch
 
 from rts_tpu_torch.engine.animate import SceneBase
 from rts_tpu_torch.engine.cpi import CpiSpec, PulseBatch, RefineExtras
-from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
+from rts_tpu_torch.engine.types import DeviceScene, RxGeomDevice, TraceConfig
 from rts_tpu_torch.physics import antenna, rcs
 from rts_tpu_torch.sim.paths import RotationPath
 
@@ -32,12 +32,12 @@ def f64(hi, lo, device="cuda"):
 
 
 def scene_base(jbase, device="cuda") -> SceneBase:
-    """rts_tpu.engine.animate.SceneBase (built with cluster_size=...); its
+    """rts_tpu.engine.animate.SceneBase, with its cluster boxes when it was
+    built with ``cluster_size=`` (the brute-force/f64 base has none); its
     replay residuals (``with_lo=True``) become the port's f64 fields."""
-    if jbase.cl_mn is None:
-        raise ValueError("the JAX SceneBase has no cluster boxes: build it with cluster_size=")
-    f32_fields = [f for f in SceneBase._fields if not f.endswith("_f64")]
-    base = SceneBase(*(tensor(getattr(jbase, f), device) for f in f32_fields))
+    fields = [f for f in SceneBase._fields if not f.endswith("_f64")]
+    base = SceneBase(*(None if getattr(jbase, f) is None else tensor(getattr(jbase, f), device)
+                       for f in fields))
     if jbase.tri_verts_lo is None:
         return base
     return base._replace(
@@ -47,7 +47,15 @@ def scene_base(jbase, device="cuda") -> SceneBase:
     )
 
 
+def device_scene(jscene, device="cuda") -> DeviceScene:
+    """rts_tpu.engine.types.DeviceScene (``scene_to_device`` or
+    ``animate_scene``), field for field."""
+    return DeviceScene(*(tensor(getattr(jscene, f), device) for f in DeviceScene._fields))
+
+
 def rx_geom(jrx, device="cuda") -> RxGeomDevice:
+    """rts_tpu.engine.types.RxGeomDevice (a PulseBatch's, or one pulse's
+    from ``RxGeomDevice.from_host``), field for field."""
     return RxGeomDevice(*(tensor(getattr(jrx, f), device) for f in RxGeomDevice._fields))
 
 

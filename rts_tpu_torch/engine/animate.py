@@ -1,13 +1,15 @@
 """Per-pulse scene animation: static base mesh + per-pulse rigid transforms
-(counterpart of ``rts_tpu.engine.animate``, clustered path).
+(counterpart of ``rts_tpu.engine.animate``).
 
 The reference rebuilds every target mesh on the host each pulse and marks
 the BVH dirty (ray_tracer.cpp:936-1146, 1125-1130).  Here the scene is
 compiled ONCE (topology and t=0-rotated geometry are time-invariant) and
 the per-pulse rigid transform (rotation + translation) is applied to the
-triangle soup on the device, straight into the traversal kernel's packed
-[16, T] field layout, with the cluster boxes refitted from per-cluster
-base boxes.
+triangle soup on the device: for the clustered path straight into the
+traversal kernel's packed [16, T] field layout, with the cluster boxes
+refitted from per-cluster base boxes (``animate_packed``); for the
+brute-force path into a ``DeviceScene`` whose intersection vectors are
+re-derived from the moved corners (``animate_scene``).
 
 Transform semantics match the reference: the base mesh already carries
 the t=0 attitude; a rotating target gets the extra R(yaw,pitch,roll at t)
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rts_tpu_torch.engine.types import DeviceScene, derive_tri_arrays
 from rts_tpu_torch.geometry.scene import SceneArrays
 
 
@@ -42,10 +45,11 @@ class SceneBase(NamedTuple):
     target_refl: torch.Tensor  # [NT]
     target_refr: torch.Tensor  # [NT]
     # Per-cluster, per-target BASE AABBs ([C, NT, 3] + validity [C, NT])
-    # for the O(C*NT) corner-transform refit.
-    cl_mn: torch.Tensor
-    cl_mx: torch.Tensor
-    cl_valid: torch.Tensor
+    # for the O(C*NT) corner-transform refit; None unless built with a
+    # ``cluster_size`` (the clustered engine).
+    cl_mn: torch.Tensor | None = None
+    cl_mx: torch.Tensor | None = None
+    cl_valid: torch.Tensor | None = None
     # float64 copies for the precision replay (engine/replay.py); None
     # unless built with ``with_f64=True``.  The JAX package keeps f32
     # residuals (``*_lo``) here for its double-single replay instead.
@@ -59,39 +63,42 @@ class SceneBase(NamedTuple):
 
 
 def scene_base(
-    scene: SceneArrays, cluster_size: int, dtype=torch.float32, device="cuda",
+    scene: SceneArrays, cluster_size: int = 0, dtype=torch.float32, device="cuda",
     with_f64: bool = False,
 ) -> SceneBase:
-    """Upload a cluster-reordered scene to ``device`` (the card unless the
-    caller asks for another) and build its per-cluster, per-target base
-    boxes (host NumPy, as in the JAX package); with ``with_f64`` also the
+    """Upload a scene to ``device`` (the card unless the caller asks for
+    another); with a ``cluster_size`` (a cluster-reordered scene, the
+    clustered engine) also build its per-cluster, per-target base boxes
+    (host NumPy, as in the JAX package); with ``with_f64`` also the
     float64 copies the replay reads."""
     tv = np.asarray(scene.tri_verts)
-    # base boxes over the SAME dtype-rounded vertices the per-pulse pack
-    # transform consumes, so the corner refit stays conservative
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    tv_r = tv.astype(np_dtype).astype(np.float64)  # [T, 3, 3]
-    tt = np.asarray(scene.tri_target)
-    nt = max(len(scene.target_refl_coeff), 1)
-    c = tv.shape[0] // cluster_size
-    pts = tv_r.reshape(c, cluster_size, 3, 3)
-    tid = tt.reshape(c, cluster_size)
-    mn = np.full((c, nt, 3), np.inf)
-    mx = np.full((c, nt, 3), -np.inf)
-    valid = np.zeros((c, nt), bool)
-    for j in range(nt):
-        m = (tid == j)[..., None, None]  # [c, cs, 1, 1]
-        mn[:, j] = np.where(m, pts, np.inf).min(axis=(1, 2))
-        mx[:, j] = np.where(m, pts, -np.inf).max(axis=(1, 2))
-        valid[:, j] = (tid == j).any(axis=1)
-    nrm = np.asarray(scene.tri_normals, np_dtype).reshape(-1, 9)
-    shade = np.concatenate([nrm, np.asarray(scene.tri_target, np_dtype)[:, None]], axis=1)
     f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-    f64 = {}
+    extra = {}
+    if cluster_size:
+        # base boxes over the SAME dtype-rounded vertices the per-pulse pack
+        # transform consumes, so the corner refit stays conservative
+        tv_r = tv.astype(np_dtype).astype(np.float64)  # [T, 3, 3]
+        tt = np.asarray(scene.tri_target)
+        nt = max(len(scene.target_refl_coeff), 1)
+        c = tv.shape[0] // cluster_size
+        pts = tv_r.reshape(c, cluster_size, 3, 3)
+        tid = tt.reshape(c, cluster_size)
+        mn = np.full((c, nt, 3), np.inf)
+        mx = np.full((c, nt, 3), -np.inf)
+        valid = np.zeros((c, nt), bool)
+        for j in range(nt):
+            m = (tid == j)[..., None, None]  # [c, cs, 1, 1]
+            mn[:, j] = np.where(m, pts, np.inf).min(axis=(1, 2))
+            mx[:, j] = np.where(m, pts, -np.inf).max(axis=(1, 2))
+            valid[:, j] = (tid == j).any(axis=1)
+        extra = dict(cl_mn=f(mn), cl_mx=f(mx), cl_valid=torch.as_tensor(valid, device=device))
     if with_f64:
         d = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64), device=device)
-        f64 = dict(tri_verts_f64=d(tv), tri_corner_normals_f64=d(scene.tri_normals),
-                   target_refl_f64=d(scene.target_refl_coeff))
+        extra.update(tri_verts_f64=d(tv), tri_corner_normals_f64=d(scene.tri_normals),
+                     target_refl_f64=d(scene.target_refl_coeff))
+    nrm = np.asarray(scene.tri_normals, np_dtype).reshape(-1, 9)
+    shade = np.concatenate([nrm, np.asarray(scene.tri_target, np_dtype)[:, None]], axis=1)
     return SceneBase(
         tri_verts=f(tv),
         tri_verts_t=f(tv.reshape(-1, 9).T),
@@ -100,10 +107,41 @@ def scene_base(
         shade_pack=f(shade),
         target_refl=f(scene.target_refl_coeff),
         target_refr=f(scene.target_refr_index),
-        cl_mn=f(mn),
-        cl_mx=f(mx),
-        cl_valid=torch.as_tensor(valid, device=device),
-        **f64,
+        **extra,
+    )
+
+
+def animate_scene(
+    base: SceneBase,
+    rot: torch.Tensor,  # [NT, 3, 3] extra attitude rotation at pulse time
+    pos: torch.Tensor,  # [NT, 3] target centres at pulse time
+    vel: torch.Tensor,  # [NT, 3] finite-difference velocities
+) -> DeviceScene:
+    """Rigid-transform the soup and re-derive the intersection vectors
+    (the brute-force path).  Padding triangles (target -1) stay all-zero
+    and unhittable.  The JAX ``einsum``s are written out as three products
+    and two adds per component, left to right."""
+    nt = base.target_refl.shape[0]
+    tid = base.tri_target.clamp(0, nt - 1).long()
+    r = rot[tid][:, None]  # [T, 1, 3, 3]
+    shift = torch.where((base.tri_target >= 0)[:, None], pos[tid], 0.0)
+    verts = torch.stack([_dot3_rows(r, i, base.tri_verts) for i in range(3)], dim=-1)
+    verts = verts + shift[:, None, :]
+    normals = torch.stack([_dot3_rows(r, i, base.tri_corner_normals) for i in range(3)], dim=-1)
+    p0, e0, e1, n, c1, c0, np0 = derive_tri_arrays(verts)
+    return DeviceScene(
+        tri_p0=p0,
+        tri_e0=e0,
+        tri_e1=e1,
+        tri_n=n,
+        tri_c1=c1,
+        tri_c0=c0,
+        tri_np0=np0,
+        tri_corner_normals=normals,
+        tri_target=base.tri_target,
+        target_refl=base.target_refl,
+        target_refr=base.target_refr,
+        target_vel=vel,
     )
 
 
@@ -158,30 +196,15 @@ def animate_packed(
 
     def corner(c):
         bx, by, bz = v[3 * c + 0], v[3 * c + 1], v[3 * c + 2]
-        return (
+        return torch.stack([
             r[0] * bx + r[1] * by + r[2] * bz + s[0],
             r[3] * bx + r[4] * by + r[5] * bz + s[1],
             r[6] * bx + r[7] * by + r[8] * bz + s[2],
-        )
+        ], dim=-1)
 
-    p0 = corner(0)
-    p1 = corner(1)
-    p2 = corner(2)
-    e0 = tuple(p1[i] - p0[i] for i in range(3))
-    e1 = tuple(p0[i] - p2[i] for i in range(3))
-
-    def cross(a, b):
-        return (
-            a[1] * b[2] - a[2] * b[1],
-            a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0],
-        )
-
-    n = cross(e1, e0)
-    c1 = cross(p0, e1)
-    c0 = cross(p0, e0)
-    np0 = n[0] * p0[0] + n[1] * p0[1] + n[2] * p0[2]
-    tri_pack = torch.stack([*n, *c1, *c0, *e1, *e0, np0], dim=0)
+    verts = torch.stack([corner(0), corner(1), corner(2)], dim=1)  # [T, 3, 3]
+    _, e0, e1, n, c1, c0, np0 = derive_tri_arrays(verts)
+    tri_pack = torch.cat([n.T, c1.T, c0.T, e1.T, e0.T, np0[None]], dim=0)
 
     # Corner refit: transform the per-cluster per-target BASE boxes by
     # the rigid motion — O(C*NT) instead of a min/max over all T animated

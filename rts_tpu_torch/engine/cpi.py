@@ -1,6 +1,7 @@
 """CPI tracing: a loop over pulses (counterpart of ``rts_tpu.engine.cpi``).
 
-Each pulse runs animate -> fan -> trace -> (replay) -> post-process ->
+Each pulse runs animate (into the clustered layout, or a ``DeviceScene``
+for the brute-force path) -> fan -> trace -> (replay) -> post-process ->
 aggregate on the device; the JAX package's ``map_pulses`` (``lax.map``)
 becomes a Python loop, and the per-pulse results are stacked on a
 leading pulse axis.
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from rts_tpu_torch.aggregate import LaneAggregate, aggregate_lanes
-from rts_tpu_torch.engine.animate import SceneBase, animate_packed
+from rts_tpu_torch.engine.animate import SceneBase, animate_packed, animate_scene
 from rts_tpu_torch.engine.compact import received_first_idx, take_lanes
 from rts_tpu_torch.engine.fan import generate_fan_c
 from rts_tpu_torch.engine.replay import replay_refine
@@ -83,7 +84,10 @@ def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=Non
 
     def one_pulse(rot, pos, vel, rx_geom: RxGeomDevice, rx_pos, tx_origin, tx_dir, time_t,
                   refine: RefineExtras | None = None):
-        scene = animate_packed(base, rot, pos, vel)
+        if cfg.accel == "cluster":
+            scene = animate_packed(base, rot, pos, vel)
+        else:
+            scene = animate_scene(base, rot, pos, vel)
         fan = generate_fan_c(cfg.num_rays, (tx_dir[0], tx_dir[1]), spec.tx_span,
                              dtype=base.tri_verts.dtype, device=base.tri_verts.device)
         res = trace_fan(scene, rx_geom, tx_origin, fan, cfg, traverse=traverse)

@@ -3,9 +3,14 @@
 
 ``TraceConfig`` has the same fields and derived properties as the JAX
 one, so a configuration converts one to one (``rts_tpu_torch.convert``).
-Options whose work is not ported yet are kept as fields but refused by
-the code that would read them, with a pointer to ROADMAP (see
-``sim.cpi.prepare_cpi`` and ``engine.wavefront.trace_fan``).
+Options whose work is not ported yet (refraction, Morton fan tiling,
+lane compaction) are kept as fields but refused by the code that would
+read them, naming their ROADMAP item (see ``sim.cpi.prepare_cpi`` and
+``engine.wavefront.trace_fan``).
+
+``DeviceScene`` is the flat scene of the brute-force intersector, with
+the per-triangle vectors it needs precomputed once
+(``derive_tri_arrays``; see ``engine.intersect``).
 """
 
 from __future__ import annotations
@@ -13,17 +18,22 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rts_tpu_torch.config import Parameters
+from rts_tpu_torch.core.vec import cross3
+from rts_tpu_torch.geometry.scene import SceneArrays
+from rts_tpu_torch.physics.receiver_geom import RxSphereGeometry
 
 
 class DeviceScene(NamedTuple):
     """Flat triangle soup + per-target attributes (brute-force layout).
 
-    The clustered main path uses ``engine.animate.ClusterScene``; this
-    container is the input of the brute-force intersector, which is not
-    ported yet (ROADMAP A.3)."""
+    The input of ``engine.intersect.closest_hit_bruteforce`` and of the
+    dense path through the bounce loop (``accel="brute"``, the default
+    and the f64 parity engine); the clustered path reads
+    ``engine.animate.ClusterScene`` instead."""
 
     tri_p0: torch.Tensor  # [T, 3]
     tri_e0: torch.Tensor  # [T, 3]  p1 - p0
@@ -39,6 +49,41 @@ class DeviceScene(NamedTuple):
     target_vel: torch.Tensor  # [NT, 3]
 
 
+def derive_tri_arrays(tri_verts):
+    """Per-triangle precomputation from corner positions [T, 3, 3]:
+    (p0, e0, e1, n, c1, c0, np0) with e0 = p1 - p0, e1 = p0 - p2,
+    n = e1 x e0, c1 = p0 x e1, c0 = p0 x e0 and np0 = n . p0.  Per-pulse
+    animation re-derives them from the moved corners
+    (``engine.animate.animate_scene`` and ``animate_packed``)."""
+    p0 = tri_verts[:, 0]
+    e0 = tri_verts[:, 1] - tri_verts[:, 0]
+    e1 = tri_verts[:, 0] - tri_verts[:, 2]
+    n = cross3(e1, e0)
+    np0 = n[:, 0] * p0[:, 0] + n[:, 1] * p0[:, 1] + n[:, 2] * p0[:, 2]
+    return p0, e0, e1, n, cross3(p0, e1), cross3(p0, e0), np0
+
+
+def scene_to_device(scene: SceneArrays, dtype=torch.float32, device="cuda") -> DeviceScene:
+    """Upload a compiled scene to ``device`` (the card unless the caller
+    asks for another) in ``dtype`` and derive the intersector's vectors."""
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64), dtype=dtype, device=device)
+    p0, e0, e1, n, c1, c0, np0 = derive_tri_arrays(f(scene.tri_verts))
+    return DeviceScene(
+        tri_p0=p0,
+        tri_e0=e0,
+        tri_e1=e1,
+        tri_n=n,
+        tri_c1=c1,
+        tri_c0=c0,
+        tri_np0=np0,
+        tri_corner_normals=f(scene.tri_normals),
+        tri_target=torch.as_tensor(scene.tri_target, dtype=torch.int32, device=device),
+        target_refl=f(scene.target_refl_coeff),
+        target_refr=f(scene.target_refr_index),
+        target_vel=f(scene.target_velocity),
+    )
+
+
 class RxGeomDevice(NamedTuple):
     """Receiver spheres + acceptance windows (see receiver_geom.py).
     Leaves are [NR, ...] for one pulse, [P, NR, ...] in a PulseBatch."""
@@ -49,6 +94,13 @@ class RxGeomDevice(NamedTuple):
     max_theta: torch.Tensor  # [NR]
     min_phi: torch.Tensor  # [NR]
     max_phi: torch.Tensor  # [NR]
+
+    @classmethod
+    def from_host(cls, rx: RxSphereGeometry, dtype=torch.float32, device="cuda") -> "RxGeomDevice":
+        return cls(*(
+            torch.as_tensor(np.asarray(getattr(rx, f), np.float64), dtype=dtype, device=device)
+            for f in cls._fields
+        ))
 
     @property
     def num_rx(self) -> int:
@@ -67,11 +119,11 @@ class TraceConfig:
 
     num_rays: int
     max_refl_dev: int
-    max_refr_dev: int  # the port traces reflections only (0); see ROADMAP
+    max_refr_dev: int  # the port traces reflections only (0); refraction is ROADMAP A.4
     interpolate_smooth: bool = True
-    strict_parity: bool = False  # f64 parity engine: not ported
-    tri_chunk: int = 512  # brute-force intersector: not ported
-    accel: str = "brute"  # the port runs "cluster" only
+    strict_parity: bool = False  # the reference's float32 narrowings (the parity engine)
+    tri_chunk: int = 512  # triangles per brute-force chunk
+    accel: str = "brute"  # "brute": dense intersector; "cluster": the CUDA traversal
     cluster_size: int = 256
     ray_tile: int = 512  # rays per kernel thread block
     group_size: int = 16  # clusters per sweep group
@@ -88,13 +140,13 @@ class TraceConfig:
     p1_super_k: int | None = None
     p1_fanout0: int | None = None
     p1_super_k0: int | None = None
-    fan_order: str = "raster"  # Morton fan tiling: not ported
+    fan_order: str = "raster"  # Morton fan tiling: not ported (ROADMAP A.4)
 
     @property
     def fan_tiling(self) -> bool:
         return self.fan_order != "raster"
 
-    compact_lanes: bool = False  # lane sort before late segments: not ported
+    compact_lanes: bool = False  # lane sort before late segments: not ported (ROADMAP A.4)
     compact_narrow: int = 0  # narrow late segments (0/1 off, -1 auto, N)
     interpret: bool = False  # Pallas interpreter flag: no meaning here
     refine: bool = False  # precision replay, native float64 here (engine/replay.py)

@@ -2,7 +2,8 @@ from rts_tpu_torch.sim.paths import AttitudePath, Path, RotationPath
 from rts_tpu_torch.sim.waveform import RadarSignal, TransmitterPulse
 from rts_tpu_torch.sim.response import InterpPoint, Response
 from rts_tpu_torch.sim.world import Receiver, Target, Transmitter, World
-from rts_tpu_torch.sim.cpi import PRESETS, check_replay_overflow, prepare_cpi, run_cpi
+from rts_tpu_torch.sim.driver import run
+from rts_tpu_torch.sim.cpi import PRESETS, check_replay_overflow, prepare_cpi, run_all_cpi, run_cpi
 
 __all__ = [
     "AttitudePath",
@@ -19,5 +20,7 @@ __all__ = [
     "PRESETS",
     "check_replay_overflow",
     "prepare_cpi",
+    "run",
+    "run_all_cpi",
     "run_cpi",
 ]

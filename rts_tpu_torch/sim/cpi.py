@@ -4,7 +4,8 @@
 Builds the static ``SceneBase`` once and a ``PulseBatch`` of per-pulse
 transforms and receiver geometry (host NumPy, as in the JAX package),
 puts every tensor on the given device, and traces the CPI pulse by pulse
-(``engine.cpi.trace_cpi``).
+(``engine.cpi.trace_cpi``).  ``sim.driver.run`` is the reference-shaped
+sequential driver beside it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from rts_tpu_torch.sim.world import World
 
 # Named option bundles, value for value those of rts_tpu.sim.cpi.PRESETS.
 # "production" is the JAX package's measured-best TPU configuration, with
-# the precision replay on (refine=True: here in native float64).
+# the precision replay on (refine=True: here in native float64); "parity"
+# the dense engine with the reference's float32 narrowing points.
 PRESETS = {
     "production": dict(
         accel="cluster",
@@ -79,8 +81,6 @@ _PREPARE_DEFAULTS = dict(
 
 # options whose non-default values select work that is not ported yet
 _NOT_PORTED = {
-    "strict_parity": (False, "the f64 parity engine (ROADMAP A.3)"),
-    "accel": ("cluster", "the brute-force intersector (ROADMAP A.3)"),
     "rx_geom_on_device": (False, "on-device receiver geometry (ROADMAP A.8)"),
     "fan_order": ("raster", "Morton fan tiling (ROADMAP A.4)"),
 }
@@ -98,14 +98,18 @@ def prepare_cpi(
 ):
     """Compile (base scene, pulse batch, cfg, spec) for one transmitter's CPI.
 
-    Same options and presets as ``rts_tpu.sim.prepare_cpi``; explicit
-    keyword options override the preset.  ``device`` is where every
-    tensor is created: the card unless the caller asks for another (there
-    is no fallback; the CPU runs the traversal's plain version).
+    Same options, presets and defaults as ``rts_tpu.sim.prepare_cpi``;
+    explicit keyword options override the preset.  With none, the scene
+    is traced by brute force (``accel="brute"``) in ``dtype``; with
+    ``dtype=torch.float64`` that is the port's f64 engine, and
+    ``preset="parity"`` adds the reference's float32 narrowing points.
+    ``accel="cluster"`` (the production preset) needs float32, the
+    traversal kernel's type.  ``device`` is where every tensor is
+    created: the card unless the caller asks for another (there is no
+    fallback; the CPU runs the traversal's plain version).
     Configurations the port cannot run yet raise ``NotImplementedError``
-    naming the ROADMAP item: anything but ``accel="cluster"``, refraction
-    (``max_refr_depth > 0``), strict parity, on-device receiver geometry
-    and Morton fan tiling.
+    naming the ROADMAP item: refraction (``max_refr_depth > 0``) and
+    Morton fan tiling (A.4), on-device receiver geometry (A.8).
 
     ``refine=True`` (the production preset) also builds the float64 state
     of the precision replay: f64 copies of the base corners, normals and
@@ -127,9 +131,12 @@ def prepare_cpi(
                 f"{name}={opts[name]!r} needs {what}, not ported to rts_tpu_torch yet"
             )
     if params.max_refr_depth > 0:
-        raise NotImplementedError("refraction (max_refr_depth > 0) is not ported to rts_tpu_torch yet (ROADMAP)")
-    if dtype != torch.float32:
-        raise NotImplementedError("the clustered engine traces in float32")
+        raise NotImplementedError("refraction (max_refr_depth > 0) is not ported to rts_tpu_torch yet (ROADMAP A.4)")
+    accel = opts["accel"]
+    if accel == "cluster" and dtype != torch.float32:
+        raise ValueError("accel='cluster' traces in float32, the traversal kernel's type")
+    if opts["refine"] and dtype != torch.float32:
+        raise ValueError("refine=True refines the float32 engine")
     needs_angles = any(not getattr(t.rcs_model, "aspect_free", False) for t in world.targets)
     rcs_angles = opts["rcs_angles"]
     if rcs_angles is None:
@@ -149,16 +156,19 @@ def prepare_cpi(
     pulse_count = trans.GetPulseCount()
     times = np.array([trans.pulse_time(k) for k in range(pulse_count)], np.float64)
 
-    # static scene (t=0 attitude, origin-centred), Morton-clustered
-    meshes = [t.base_mesh(strict_parity=False) for t in world.targets]
+    # static scene (t=0 attitude, origin-centred), Morton-clustered for
+    # the clustered engine
+    meshes = [t.base_mesh(strict_parity=opts["strict_parity"]) for t in world.targets]
     scene = compile_scene(
         meshes,
         [t.GetReflCoeff() for t in world.targets],
         [t.GetRefrIndex() for t in world.targets],
         pad_to=opts["pad_tris_to"],
     )
-    scene = cluster_reorder(scene, cluster_size=cluster_size)
-    base = scene_base(scene, cluster_size, dtype=dtype, device=device, with_f64=opts["refine"])
+    if accel == "cluster":
+        scene = cluster_reorder(scene, cluster_size=cluster_size)
+    base = scene_base(scene, cluster_size if accel == "cluster" else 0, dtype=dtype, device=device,
+                      with_f64=opts["refine"])
 
     # per-pulse transforms and tx/rx geometry, vectorised over pulses
     rot = attitude_rotations(world.targets, times, params.start_time)
@@ -246,6 +256,13 @@ def check_replay_overflow(out: CpiResult, cfg: TraceConfig, *, warn: bool = True
                 UserWarning, stacklevel=2,
             )
     return counts
+
+
+def run_all_cpi(world: World, params: Parameters, **kw) -> list:
+    """Trace every transmitter's CPI (the outer loop of rs::RTS,
+    ray_tracer.cpp:806); one CpiResult per transmitter.  ``kw`` goes to
+    :func:`run_cpi`."""
+    return [run_cpi(world, params, tx_index=i, **kw) for i in range(len(world.transmitters))]
 
 
 def run_cpi(

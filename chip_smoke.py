@@ -8,11 +8,12 @@ with a non-zero exit at the first error: the production CPI of the
 traversal's live-cluster pack (K5, ``bench.py --resident-cap``) and with
 per-candidate windows (K6, ``--no-mt-union``), the moving-shell CPI of
 four 1.31M-triangle icospheres (BASELINE config 2, ``bench.py --scene
-moving``), and the default entry points: the f64 brute-force engine and
+moving``), the default entry points: the f64 brute-force engine and
 parity preset on the sphere scene (config 1), held to the 1e-6 contract
 against the production preset, and the sequential driver on README.md's
-quick start.  There is no CPU fallback: without a CUDA card it exits
-non-zero before printing any result.
+quick start; and the dielectric CPI with refraction (config 3,
+``bench.py --scene dielectric``).  There is no CPU fallback: without a
+CUDA card it exits non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
   1. build the traversal kernel (csrc/mt_traverse.cu) from source, with the
@@ -59,7 +60,8 @@ Phases (each line stamped with the card's name and power limit):
      mt_union=False, 8 pulses each: bit-identical to phase 3, K5/K6
      launches counted, no live-set overflow, a second run bit-identical;
   j. profile: torch.profiler over one warm pulse of each main path (the
-     terrain at the production preset, the moving shells at MOVING_KNOBS):
+     terrain at the production preset, the moving shells at MOVING_KNOBS,
+     and after phase m the dielectric CPI of phase n):
      device time against the wall, the kernel's share of device time, the
      five largest operators by device time.  Printed only; it gates nothing;
   k. the default entry point: prepare_cpi(dtype=float64) with no options
@@ -78,7 +80,30 @@ Phases (each line stamped with the card's name and power limit):
      within 1e-6; the same on the moving scene at subdivision 5, 1 pulse;
   m. README.md's quick start (sequential driver rts_tpu_torch.sim.run, f64
      brute force, 64 pulses) on the card against the same run on the CPU:
-     the same responses, power, delay, Doppler and phase within 1e-9.
+     the same responses, power, delay, Doppler and phase within 1e-9;
+  n. the dielectric main path (BASELINE config 3: the 1M terrain under a
+     200 m dielectric slab, two receivers; 3 x 63^3 lanes, 6 segments,
+     results 5 x 63^3 wide) through prepare_cpi(preset="production"), 8
+     pulses: the lanes each receiver receives a pulse, counted on a trace
+     without the replay, set the replay cap (the smallest power of two at
+     or above the most, at least 128); with the replay received > 0,
+     finite, K1 launches counted, no lane past 3 x 63^3 received, a second
+     run bit-identical, and every decision that of the trace without the
+     replay; ms/pulse and rays/s (a ray is a launch cell with its
+     children); one pulse with each segment's lanes traced, live lanes by
+     slot and swept tiles; the kernel against plain on its segment-2 (the
+     trapped children) and segment-3 (the exiting children) operands, bit
+     for bit, with times, pairs and bounds; one pulse with
+     fan_order="morton2" and one with compact_lanes=True against raster,
+     bit-identical on every lane whose chain of triangles is raster's, a
+     lane that parts doing so on triangles that share a corner (an exact t
+     tie), and segment 1 held by compare_ties;
+  o. the 1e-6 contract of phase l, 1 pulse at 63^3 against the card's own
+     f64 brute-force engine, the edge-tie rule followed into the refracted
+     children's chains: on config 3 with its terrain cut to ~20k triangles
+     (DIELECTRIC_CUT_TRIS), and on the dielectric plate of
+     tests/test_replay.py:83, whose forward receiver must receive exiting
+     chains.
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -92,9 +117,10 @@ rate), which of the two binds, and the kernel's share of it; and the
 kernel's picoseconds per pair it evaluated.
 
 The line before the card line is a JSON object with the kernel's modes,
-their launches in the main paths, errors, times and bounds (the sweep,
-K2, with each of its three calls: terrain-20k sweep-only, the terrain
-overflow, the moving swept tiles); the last line is the JSON result.
+their launches in the main paths, errors, times and bounds (K1 with the
+dielectric segment-2 and segment-3 calls; the sweep, K2, with each of its
+three calls: terrain-20k sweep-only, the terrain overflow, the moving
+swept tiles); the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -137,6 +163,9 @@ SPHERE_KNOBS = dict(cluster_size=1024, candidates=128, mt_group=1, p1_fanout=16,
 CPU_CHECK_RAYS = 4096  # phase k's segment-1 rays held to the port on the CPU
 EDGE_TIE = 1e-5  # phase l: a lane whose decision differs must pass this close to a triangle edge
 README_PULSES = 64  # phase m: README.md's quick start as written
+# phase o: BASELINE config 3's terrain cut for the contract against the f64
+# brute-force engine (its cost is lanes x triangles: 3 x 63^3 x 20k a segment)
+DIELECTRIC_CUT_TRIS = 20_000
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
 # outside the tensor cores, and the HBM rate.
 FP32_PEAK = 67e12
@@ -213,19 +242,60 @@ def moving_world(pulses: int, subdiv: int | None = None):
     with a 25 m capture sphere."""
     import numpy as np
 
-    from rts_tpu_torch.engine.fan import generate_fan_c
+    from rts_tpu_torch.engine.fan import generate_fan
     from rts_tpu_torch.sim import Path, RadarSignal, Receiver, Target, Transmitter, World
 
     w = World()
     w.add(Transmitter(path=Path.fixed(0, 0, 0), wave=RadarSignal(carrier=10e9), pulse_count=pulses,
                       prf=1000.0, tx_span=(0.15, 0.15, 0.0)))
     w.add(Receiver(path=Path.fixed(0, 0, 0), sphere=(25.0, 1.2, 1.2)))
-    nodes = generate_fan_c(3, (0.0, 0.0), (0.15, 0.15, 0.0), device="cpu").T.double().numpy()
+    nodes = generate_fan(3, (0.0, 0.0), (0.15, 0.15, 0.0), device="cpu").double().numpy()
     for node, rng, speed in ((12, 900.0, -50.0), (9, 1400.0, 80.0), (15, 2000.0, -140.0),
                              (3, 2600.0, 30.0)):
         d = nodes[node] / np.linalg.norm(nodes[node])
         w.add(Target(path=Path.linear([(0.0, tuple(rng * d)), (1.0, tuple((rng + speed) * d))]),
                      shape="sphere", sphere_params=(subdiv or MOVING_SUBDIV, 60.0), refl_coeff=0.9))
+    return w
+
+
+def dielectric_world(pulses: int, tris: int):
+    """BASELINE config 3 (bench.py --scene dielectric, bench.py:75-116): the
+    terrain of config 4 (~``tris`` triangles, 12 km, 300 m peaks) under a
+    200 m dielectric slab (2 m thick, pitched flat, at 1 km; refl 0.5,
+    index 1.5), Tx and a monostatic Rx 4 km up looking down, a forward Rx
+    at 100 m looking up (capture sphere (60, 1.4, 1.4)), 10 GHz."""
+    from rts_tpu_torch.sim import (AttitudePath, Path, RadarSignal, Receiver, RotationPath,
+                                   Target, Transmitter, World)
+
+    n = max(2, round(math.sqrt(tris / 2)) + 1)
+    down = RotationPath(elevation=-math.pi / 2)
+    w = World()
+    w.add(Transmitter(path=Path.fixed(0.0, 0.0, 4000.0), wave=RadarSignal(carrier=10e9),
+                      pulse_count=pulses, prf=1000.0, tx_span=(0.15, 0.15, 0.0), rotation=down))
+    w.add(Receiver(path=Path.fixed(0.0, 0.0, 4000.0), sphere=(25.0, 1.2, 1.2), rotation=down))
+    w.add(Receiver(path=Path.fixed(0.0, 0.0, 100.0), rotation=RotationPath(elevation=math.pi / 2),
+                   sphere=(60.0, 1.4, 1.4)))
+    w.add(Target(shape="terrain", terrain=(n, 12000.0, 300.0, 3), path=Path.fixed(0.0, 0.0, 0.0),
+                 refl_coeff=0.9))
+    w.add(Target(shape="rect", rect=(2.0, 200.0, 200.0), attitude=AttitudePath(pitch=math.pi / 2),
+                 path=Path.fixed(0.0, 0.0, 1000.0), refl_coeff=0.5, refr_index=1.5))
+    return w
+
+
+def dielectric_plate_world(pulses: int):
+    """tests/test_replay.py:83's world: a 200 m plate 2 m thick at 1 km made
+    dielectric (refl 0.6, index 1.5) before a monostatic radar at the
+    origin (capture sphere (5, 1, 1)), and a forward Rx 2 km out looking
+    back (capture sphere (8, 1.5, 1.5)) that the exiting chains reach."""
+    from rts_tpu_torch.sim import Path, RadarSignal, Receiver, RotationPath, Target, Transmitter, World
+
+    w = World()
+    w.add(Transmitter(path=Path.fixed(0, 0, 0), wave=RadarSignal(carrier=10e9), pulse_count=pulses,
+                      prf=1000.0, tx_span=(0.1, 0.1, 0.0)))
+    w.add(Receiver(path=Path.fixed(0, 0, 0), sphere=(5.0, 1.0, 1.0)))
+    w.add(Receiver(path=Path.fixed(2000, 0, 0), rotation=RotationPath(azimuth=math.pi), sphere=(8.0, 1.5, 1.5)))
+    w.add(Target(path=Path.fixed(1000, 0, 0), shape="rect", rect=(2.0, 200.0, 200.0), refl_coeff=0.6,
+                 refr_index=1.5))
     return w
 
 
@@ -329,6 +399,47 @@ def sweep_calls(card: str, calls) -> list:
     return out
 
 
+def reset_counts(dev) -> None:
+    """Every launch count of the traversal kernel to 0."""
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    CT.mt_traverse.launches = 0
+    for mode in CT.mt_traverse.mode_launches:
+        CT.mt_traverse.mode_launches[mode] = 0
+    CT.mt_traverse.sweep_counts = torch.zeros(2, dtype=torch.int32, device=dev)
+
+
+def sweep_counts():
+    """(calls that swept a tile, swept tiles) since reset_counts, as the
+    kernel counted them on the device."""
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    calls, tiles = CT.mt_traverse.sweep_counts.tolist()
+    return calls, tiles
+
+
+def check_call(inp, shape, what: str) -> dict:
+    """The kernel against its plain version on one call's phase-2 operands:
+    t/tri/beta/gamma and the work counters bit-equal; the kernel's time
+    (20 calls), the plain time (1), the pairs and clusters the plain
+    version evaluated and the call's bound from them."""
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    got = CT.mt_traverse(inp, shape)
+    ref, pairs, clusters = plain_counted(lambda: CT.mt_traverse_reference(inp, shape), shape.cluster_size)
+    sync()
+    for name, a, b in zip(("t", "tri", "beta", "gamma", "stats"), got[:4] + got[5:], ref[:4] + ref[5:]):
+        if not bit_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the plain version")
+    f = ref[0] < 3.0e38
+    return dict(what=what, pairs=pairs, clusters=clusters,
+                err=max(float((a[f] - b[f]).abs().max()) if bool(f.any()) else 0.0
+                        for a, b in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3]))),
+                ms=time_ms(lambda: CT.mt_traverse(inp, shape), 20),
+                plain_ms=time_ms(lambda: CT.mt_traverse_reference(inp, shape), 1),
+                **bound(inp, shape, got[5], pairs, clusters))
+
+
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype.is_floating_point:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -365,6 +476,31 @@ def compare_ties(got, ref, what: str, against: str) -> int:
         if not bit_equal(getattr(got, name)[same], getattr(ref, name)[same]):
             raise AssertionError(f"{what}: {name} not bit-equal to {against} where tri agrees")
     return int((f & ~same).sum())
+
+
+def compare_pulse_ties(got, ref, corners, what: str, against: str) -> int:
+    """Two traces of one pulse whose ray tiles differ (another fan order,
+    the lane compaction): every lane whose chain of triangles equals the
+    other's bit-equal in every output; a lane whose chain differs must part
+    from it, at its first differing step, on two triangles that share a
+    corner (an exact t tie, which the visit order breaks).  Returns the
+    number of lanes that part."""
+    same = (got.tri_seq == ref.tri_seq).all(0)
+    for name, a, b in zip(got._fields, got, ref):
+        if not bit_equal(a[..., same], b[..., same]):
+            raise AssertionError(f"{what}: {name} differs from {against} on lanes of the same chain")
+    parted = torch.nonzero(~same).reshape(-1)
+    if parted.numel():
+        diff = got.tri_seq[:, parted] != ref.tri_seq[:, parted]
+        step = diff.int().argmax(0)
+        a = got.tri_seq[step, parted].long()
+        b = ref.tri_seq[step, parted].long()
+        if bool(((a < 0) | (b < 0)).any()):
+            raise AssertionError(f"{what}: a lane hits where {against} misses")
+        ca, cb = corners[a], corners[b]  # [lanes, 3 corners, 3]
+        if not bool((ca[:, :, None, :] == cb[:, None, :, :]).all(-1).any((1, 2)).all()):
+            raise AssertionError(f"{what}: a lane parts from {against} on triangles that share no corner")
+    return int(parted.numel())
 
 
 def same_result(a, b) -> bool:
@@ -447,40 +583,332 @@ def device_launches(fn):
     return sum(e.count for e in on_device), sum(device_us(e) for e in on_device) / 1e3
 
 
+def f64_pulse(state, p):
+    """Pulse p of an f64 brute-force CPI through the pulse function
+    trace_cpi runs: (its trace, per-lane power, aggregate, each segment's
+    closest hits)."""
+    from rts_tpu_torch.engine import wavefront as W
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
+
+    hits = []
+    inner = W.closest_hit_bruteforce
+
+    def keeping(*a, **kw):
+        hits.append(inner(*a, **kw))
+        return hits[-1]
+
+    W.closest_hit_bruteforce = keeping
+    try:
+        one, agg = make_pulse_fn(state[0], state[2], state[3])
+        res, pw, dp, dl = one(*pulse_args(state[1], p))
+        return res, pw, agg(res, pw, dp, dl), hits
+    finally:
+        W.closest_hit_bruteforce = inner
+
+
+def divergence(seq64, seq32, hits, lane: int, n3: int):
+    """(chain step, the f64 hit's distance to its triangle's nearest edge)
+    at the first step where the two sides' chains of triangles part; the
+    distance is inf where the f64 side missed there or the chains do not
+    part (a decision that no triangle edge explains).  Chain step c is
+    segment c's hit, traced in the lane itself, or for a refracted child's
+    first steps in its parent's lane, n3 lanes up a slot; a lane past the
+    traced ones holds a primary's pre-filled path row."""
+    if lane >= 3 * n3:
+        lane %= n3
+    seq64, seq32 = seq64[:, lane], seq32[:, lane]
+    steps = torch.nonzero(seq64 != seq32).reshape(-1).tolist()
+    if not steps or int(seq64[steps[0]]) < 0:
+        return (steps or [None])[0], float("inf")
+    c = steps[0]
+    at = lane - max(0, min(lane // n3, 2) - c) * n3
+    h = hits[c]
+    if int(h.tri[at]) != int(seq64[c]):
+        raise AssertionError(f"lane {lane}'s chain step {c} is not segment {c}'s hit in lane {at}")
+    b, g = float(h.beta[at]), float(h.gamma[at])
+    return c, min(b, g, 1.0 - b - g)
+
+
+def contract(card: str, dev, what: str, f64_base, f64_pulses, prod_state, phase: str = "l") -> dict:
+    """The 1e-6 power/phase contract of the production preset (f32 kernel
+    + f64 replay, ``prod_state``) against the card's own f64 brute-force
+    engine (``f64_pulses`` from f64_pulse): received lanes, path rows and
+    depths identical but for lanes whose chains part on an edge tie (the
+    f64 hit within EDGE_TIE of its triangle's edge where the two sides'
+    triangles first differ; printed); on the other received lanes, power,
+    aggregated power and phase within 1e-6."""
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    to_brute = brute_index(prod_state[0], f64_base).to(dev)
+    n3 = prod_state[2].rays_per_fan
+    CT.mt_traverse.launches = 0
+    worst = dict(power=0.0, agg_power=0.0, phase=0.0)
+    compared = ties = parted = 0
+    for p, (res64, pw64, out64, hits) in enumerate(f64_pulses):
+        one, agg = make_pulse_fn(prod_state[0], prod_state[2], prod_state[3])
+        res32, pw32, dp32, dl32 = one(*pulse_args(prod_state[1], p))
+        out32 = agg(res32, pw32, dp32, dl32)
+        n_rec = int((res32.received >= 0).sum())
+        if n_rec > prod_state[2].replay_cap:
+            raise AssertionError(f"phase {phase} {what}: {n_rec} lanes received, above the replay cap "
+                                 f"{prod_state[2].replay_cap}")
+        differ = ((res64.received != res32.received) | (res64.path != res32.path).any(0)
+                  | (res64.refl_depth != res32.refl_depth) | (res64.refr_depth != res32.refr_depth))
+        seq32 = torch.where(res32.tri_seq >= 0, to_brute[res32.tri_seq.clamp(min=0).long()], -1)
+        parted += int(((seq32 != res64.tri_seq).any(0) & ~differ).sum())
+        for lane in torch.nonzero(differ).reshape(-1).tolist():
+            step, edge = divergence(res64.tri_seq, seq32, hits, lane, n3)
+            if ties < 20 or edge > EDGE_TIE:  # the first 20, and any that fails
+                tl = lane if lane < 3 * n3 else lane % n3
+                chain = [(s_, int(h.tri[tl]), float(h.beta[tl]), float(h.gamma[tl]))
+                         for s_, h in enumerate(hits) if bool(h.found[tl])]
+                stamp(card, f"phase {phase} {what} pulse {p} lane {lane}: received {int(res64.received[lane])} "
+                            f"(f64) / {int(res32.received[lane])} (production), path "
+                            f"{res64.path[:, lane].tolist()} / {res32.path[:, lane].tolist()}; the f64 hits "
+                            f"(segment, triangle, beta, gamma) {chain}; the chains part at step {step}, "
+                            f"where the f64 hit lies {edge:.3e} from its triangle's nearest edge")
+            if edge > EDGE_TIE:
+                raise AssertionError(f"phase {phase} {what}: lane {lane}'s decision differs {edge:.3e} from "
+                                     f"the triangle edge where the chains part (more than {EDGE_TIE})")
+            ties += 1
+        # compare the groups no differing lane belongs to
+        ok = (res64.received >= 0) & ~differ
+        for o_ in (out64, out32):
+            ok &= ~torch.isin(o_.agg.path_match, o_.agg.path_match[differ])
+        rel = lambda a, b: float((a[ok].double() / b[ok].double() - 1.0).abs().max()) if bool(ok.any()) else 0.0
+        worst["power"] = max(worst["power"], rel(pw32, pw64))
+        worst["agg_power"] = max(worst["agg_power"], rel(out32.agg.power, out64.agg.power))
+        ph = (out32.agg.phase.double() + out32.agg.phase_lo.double() - out64.agg.phase - out64.agg.phase_lo).abs()
+        ph = torch.minimum(ph, 2 * math.pi - ph)[ok]
+        worst["phase"] = max(worst["phase"], float(ph.max()) if ph.numel() else 0.0)
+        compared += int(ok.sum())
+    if CT.mt_traverse.launches == 0:
+        raise AssertionError(f"phase {phase} {what}: the production side never launched the traversal kernel")
+    if compared == 0:
+        raise AssertionError(f"phase {phase} {what}: no received lane to compare")
+    stamp(card, f"phase {phase} {what}: {len(f64_pulses)} pulse(s), production preset (f32 kernel, "
+                f"{CT.mt_traverse.launches} launches, + f64 replay) against the card's f64 brute-force "
+                f"engine: decisions identical but for {ties} printed edge-tie lanes (on {parted} more lanes "
+                f"the two chains hit other triangles, to the same decisions); on {compared} received "
+                f"lanes the largest error is power {worst['power']:.3e}, aggregated power "
+                f"{worst['agg_power']:.3e} (relative), phase {worst['phase']:.3e} rad")
+    if max(worst.values()) >= 1e-6:
+        raise AssertionError(f"phase {phase} {what}: the 1e-6 power/phase contract fails: {worst}")
+    return dict(worst, compared=compared, ties=ties, parted=parted)
+
+
+def dielectric_phases(card: str, dev) -> dict:
+    """Phases n and o, and phase j's dielectric profile: BASELINE config 3
+    at full width through the production preset, and the 1e-6 contract on
+    its cut.  Returns what the kernels line adds: the path's kernel
+    launches, its calls that swept a tile and their swept tiles, and K1's
+    segment-2 and segment-3 calls."""
+    from rts_tpu_torch import Parameters
+    from rts_tpu_torch.engine import wavefront as W
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
+    from rts_tpu_torch.engine.fan import fan_tile_perm
+    from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.sim import check_replay_overflow, prepare_cpi
+
+    t_n = time.perf_counter()
+    params = Parameters(num_rays=NUM_RAYS, max_refl_depth=2, max_refr_depth=2)
+
+    def with_replay_cap(state, phase):
+        """The state with the smallest power-of-two replay cap (at least
+        128) at or above the most lanes a pulse receives, counted on a
+        trace without the replay; and that trace."""
+        base_, batch_, cfg_, spec_ = state
+        plain_ = trace_cpi(base_, batch_, dataclasses.replace(cfg_, refine=False), spec_)
+        per_rx = [(plain_.received == i).sum(1).tolist() for i in range(spec_.num_rx)]
+        most = int((plain_.received >= 0).sum(1).max())
+        cap = max(128, 1 << max(0, most - 1).bit_length())
+        stamp(card, f"phase {phase}: lanes received per pulse by the monostatic Rx {per_rx[0]}, by the "
+                    f"forward Rx {per_rx[1]}; replay cap {cap}, the smallest power of two at or above "
+                    f"{most} and at least 128 (bench.py's is 128, the production preset's 256)")
+        return (base_, batch_, dataclasses.replace(cfg_, replay_cap=cap), spec_), plain_
+
+    # ---- n. the dielectric main path: 3 x 63^3 lanes, 6 segments
+    t0 = time.perf_counter()
+    state = prepare_cpi(dielectric_world(PULSES, TRIS), params, preset="production", device=dev)
+    prep_s = time.perf_counter() - t0
+    n3, P = state[2].rays_per_fan, PULSES
+    R = state[2].ray_total
+    if (state[2].num_segments, R) != (6, 5 * n3):
+        raise AssertionError(f"phase n: {state[2].num_segments} segments, {R} result lanes")
+    stamp(card, f"phase n dielectric (config 3): {int(state[0].tri_verts.shape[0])} triangles, {n3} rays "
+                f"a pulse traced as {3 * n3} lanes (primaries, trapped and exiting children) over "
+                f"{state[2].num_segments} segments, results {R} lanes wide; prepare_cpi {prep_s:.2f} s")
+    state, plain = with_replay_cap(state, "n")
+    base, batch, cfg, spec = state
+    reset_counts(dev)
+    sync()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="replay cap overflow")  # fails the run
+        t0 = time.perf_counter()
+        out = trace_cpi(*state)
+        sync()
+        first_s = time.perf_counter() - t0
+        launches = CT.mt_traverse.launches
+        sweeps, swept = sweep_counts()
+        check_replay_overflow(out, cfg)
+    received = int((out.received >= 0).sum())
+    if launches == 0:
+        raise AssertionError("the dielectric path never launched the traversal kernel")
+    if received == 0 or tuple(out.received.shape) != (P, R):
+        raise AssertionError(f"phase n: {received} lanes received, shape {tuple(out.received.shape)}")
+    if bool((out.received[:, 3 * n3:] >= 0).any()):
+        raise AssertionError("phase n: a lane past the traced ones was received")
+    if not all(bool(torch.isfinite(a).all()) for a in (out.power, out.doppler, out.delay, *out.agg)
+               if a.dtype.is_floating_point):
+        raise AssertionError("phase n: a non-finite output")
+    t0 = time.perf_counter()
+    again = trace_cpi(*state)
+    sync()
+    second_s = time.perf_counter() - t0
+    if not same_result(out, again):
+        raise AssertionError("second dielectric run differs: not deterministic")
+    for name, a, b in (("received", out.received, plain.received), ("emit", out.agg.emit, plain.agg.emit),
+                       ("npath", out.agg.npath, plain.agg.npath),
+                       ("path_match", out.agg.path_match, plain.agg.path_match)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase n: the replay changed a decision: {name}")
+    best_s = min(first_s, second_s)
+    by_slot = [int((out.received[:, k * n3:(k + 1) * n3] >= 0).sum()) for k in range(3)]
+    stamp(card, f"phase n dielectric main path (refine=True): {P} pulses x {n3} rays, {received} received "
+                f"lanes ({by_slot[0]} primary, {by_slot[1]} trapped, {by_slot[2]} exiting), "
+                f"{int(out.agg.emit.sum())} emitted paths, {launches} kernel launches ({sweeps} of them "
+                f"swept {swept} tiles in all); {1e3 * best_s / P:.1f} ms/pulse, {P * n3 / best_s:.4g} rays/s "
+                f"(a ray is a launch cell with its children; first run {first_s:.2f} s, second "
+                f"{second_s:.2f} s, bit-identical; the replay changed no decision)")
+    del again, plain
+
+    # one pulse with its segments seen: each segment's kernel operands and
+    # its live lanes by slot (a lane's slot rides in its slot_base)
+    calls, live = [], []
+    inner_hit, inner_miss = W.closest_hit_clustered, W._process_miss
+
+    def hit_spy(*a, **k):
+        def keep(inp, shape):
+            calls.append((inp, shape))
+            return CT.mt_traverse(inp, shape)
+
+        return inner_hit(*a, **{**k, "traverse": keep})
+
+    def miss_spy(st, *a, **k):
+        live.append(torch.bincount((st.slot_base // n3).long()[st.active], minlength=3))
+        return inner_miss(st, *a, **k)
+
+    args0 = pulse_args(batch, 0)
+    one, agg = make_pulse_fn(base, cfg, spec)
+    W.closest_hit_clustered, W._process_miss = hit_spy, miss_spy
+    try:
+        res0 = one(*args0)[0]
+    finally:
+        W.closest_hit_clustered, W._process_miss = inner_hit, inner_miss
+    if not torch.equal(res0.received, out.received[0]) or len(calls) < 3:
+        raise AssertionError(f"phase n: the seen pulse differs from trace_cpi's, or {len(calls)} segments")
+    for i, ((inp, _), lv) in enumerate(zip(calls, live)):
+        stamp(card, f"phase n segment {i + 1}: {inp.origin.shape[1]} lanes traced ({inp.meta.shape[0]} "
+                    f"tiles, {int((inp.meta[:, 1] != 0).sum())} swept); live lanes by slot (primary, "
+                    f"trapped, exiting) {lv.tolist()}")
+    k1_calls = []
+    for i, what in ((1, "segment 2, the trapped children"), (2, "segment 3, the exiting children")):
+        inp, shape = calls[i]
+        r = check_call(inp, shape, f"dielectric {what}")
+        r.update(tiles=int(inp.meta.shape[0]), swept_tiles=int((inp.meta[:, 1] != 0).sum()),
+                 live_lanes=int(live[i].sum()))
+        k1_calls.append(r)
+        stamp(card, f"phase n {r['what']}: kernel bit-equal to plain (t/tri/beta/gamma, counters); "
+                    f"{r['tiles']} tiles ({r['swept_tiles']} swept), {r['live_lanes']} live lanes; kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms; {r['pairs']} pairs over {r['clusters']} "
+                    f"clusters; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                    f"({100 * r['bound_ms'] / r['ms']:.2f}%), {1e9 * r['ms'] / r['pairs']:.3f} ps/pair")
+    del calls, live, res0
+
+    # Morton fan tiling and the lane compaction: one pulse each against
+    # raster, up to exact t ties (both re-form the ray tiles)
+    def seen_pulse(c):
+        hits = []
+
+        def keep(*a, **k):
+            hits.append(inner_hit(*a, **k))
+            return hits[-1]
+
+        W.closest_hit_clustered = keep
+        try:
+            return make_pulse_fn(base, c, spec)[0](*args0)[0], hits
+        finally:
+            W.closest_hit_clustered = inner_hit
+
+    raster_cfg = dataclasses.replace(cfg, refine=False)
+    ref_res, ref_hits = seen_pulse(raster_cfg)
+    perm = torch.as_tensor(fan_tile_perm(NUM_RAYS, "morton2"), device=dev)
+    morton_lanes = torch.cat([k * n3 + perm for k in range(3)])
+    take = lambda h, idx: type(h)(*(None if x is None else x[..., idx] for x in h))
+    for what, option in (("fan_order='morton2'", dict(fan_order="morton2")),
+                         ("compact_lanes=True", dict(compact_lanes=True))):
+        res, hits = seen_pulse(dataclasses.replace(raster_cfg, **option))
+        # segment 1: the morton order traces the raster lanes permuted; the
+        # compaction sorts the lanes only after the spawn segments
+        seg1 = ref_hits[0] if "compact_lanes" in option else take(ref_hits[0], morton_lanes)
+        ties1 = compare_ties(hits[0], seg1, f"phase n {what} segment 1", "raster")
+        parted = compare_pulse_ties(res, ref_res, base.tri_verts, f"phase n {what}", "raster")
+        stamp(card, f"phase n {what}: one pulse against raster: segment 1 equal but for {ties1} exact-t "
+                    f"tie lanes; the whole pulse bit-identical on every lane whose chain of triangles "
+                    f"is raster's, and {parted} lanes part from it on triangles that share a corner")
+    del ref_res, ref_hits
+
+    # ---- j. profile one warm dielectric pulse
+    try:
+        profile_pulse(card, "dielectric", lambda: agg(*one(*args0)))
+    except Exception as exc:  # the phase measures; it gates nothing
+        stamp(card, f"phase j dielectric: the profiler failed: {exc!r}")
+    del base, batch, out, one, agg, args0, state
+    t_o = time.perf_counter()
+
+    # ---- o. the 1e-6 contract on config 3 cut to DIELECTRIC_CUT_TRIS
+    # triangles, whose receivers see only primaries, and on the dielectric
+    # plate of tests/test_replay.py:83, whose forward Rx sees exiting chains
+    for what, world, need_children in (
+            ("dielectric (config 3, terrain cut to {} triangles)", lambda: dielectric_world(1, DIELECTRIC_CUT_TRIS),
+             False),
+            ("dielectric plate ({} triangles), forward Rx behind it", lambda: dielectric_plate_world(1), True)):
+        f64_state = prepare_cpi(world(), params, dtype=torch.float64, device=dev)
+        prod, _ = with_replay_cap(prepare_cpi(world(), params, preset="production", device=dev), "o")
+        sync()
+        t0 = time.perf_counter()
+        f64 = f64_pulse(f64_state, 0)
+        sync()
+        f64_s = time.perf_counter() - t0
+        n_tris = int(f64_state[0].tri_verts.shape[0])
+        rec = f64[0].received >= 0
+        by_slot = [int(rec[k * n3:(k + 1) * n3].sum()) for k in range(3)]
+        if need_children and by_slot[2] == 0:
+            raise AssertionError(f"phase o {what.format(n_tris)}: no exiting chain received")
+        r = contract(card, dev, what.format(n_tris), f64_state[0], [f64], prod, phase="o")
+        pairs = f64_state[2].num_segments * 3 * n3 * n_tris
+        stamp(card, f"phase o {what.format(n_tris)}: received lanes by slot (primary, trapped, exiting) "
+                    f"{by_slot}, {r['compared']} compared; the f64 brute-force pulse {f64_s:.2f} s "
+                    f"({pairs:.4g} pairs at most, {pairs / f64_s:.4g} pairs/s)")
+        del f64_state, prod, f64
+    stamp(card, f"phases n and o: {t_o - t_n:.1f} s, {time.perf_counter() - t_o:.1f} s")
+    return dict(launches=launches, sweeps=sweeps, swept=swept, calls=k1_calls)
+
+
 def brute_phases(card: str, dev, params) -> None:
     """Phases k, l and m: the brute-force engine, the f64 parity engine and
     the sequential driver, the port's default entry points."""
     from rts_tpu_torch import Parameters
     from rts_tpu_torch.core.constants import SCENE_EPS
-    from rts_tpu_torch.engine import wavefront as W
     from rts_tpu_torch.engine.animate import animate_scene
-    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
+    from rts_tpu_torch.engine.cpi import trace_cpi
     from rts_tpu_torch.engine.fan import generate_fan_c
     from rts_tpu_torch.engine.intersect import closest_hit_bruteforce
-    from rts_tpu_torch.ops import cluster_trace as CT
     from rts_tpu_torch.sim import prepare_cpi, run, run_all_cpi
 
     f64 = torch.float64
     t_k = time.perf_counter()
-
-    def f64_pulse(state, p):
-        """Pulse p of an f64 brute-force CPI through the pulse function
-        trace_cpi runs: (its trace, per-lane power, aggregate, each
-        segment's closest hits)."""
-        hits = []
-        inner = W.closest_hit_bruteforce
-
-        def keeping(*a, **kw):
-            hits.append(inner(*a, **kw))
-            return hits[-1]
-
-        W.closest_hit_bruteforce = keeping
-        try:
-            one, agg = make_pulse_fn(state[0], state[2], state[3])
-            res, pw, dp, dl = one(*pulse_args(state[1], p))
-            return res, pw, agg(res, pw, dp, dl), hits
-        finally:
-            W.closest_hit_bruteforce = inner
 
     # ---- k. the brute-force engine at full width, f64, bare defaults and parity
     brute = {}
@@ -571,83 +999,13 @@ def brute_phases(card: str, dev, params) -> None:
 
     # ---- l. the 1e-6 power/phase contract on the card: the production
     # preset (f32 kernel + f64 replay) against the card's own f64 engine
-    def divergence(seq64, seq32, hits, lane):
-        """(chain step, the f64 hit's distance to its triangle's nearest
-        edge) at the first step where the two sides' chains of triangles
-        part; the distance is inf where the f64 side missed there or the
-        chains do not part (a decision that no triangle edge explains)."""
-        seq64, seq32 = seq64[:, lane], seq32[:, lane]
-        steps = torch.nonzero(seq64 != seq32).reshape(-1).tolist()
-        if not steps or int(seq64[steps[0]]) < 0:
-            return (steps or [None])[0], float("inf")
-        c = steps[0]
-        h = hits[c]  # reflections only: chain step c is segment c's hit
-        if int(h.tri[lane]) != int(seq64[c]):
-            raise AssertionError(f"phase l: lane {lane}'s chain step {c} is not segment {c}'s hit")
-        b, g = float(h.beta[lane]), float(h.gamma[lane])
-        return c, min(b, g, 1.0 - b - g)
-
-    def contract(what, f64_base, f64_pulses, prod_state):
-        to_brute = brute_index(prod_state[0], f64_base).to(dev)
-        CT.mt_traverse.launches = 0
-        worst = dict(power=0.0, agg_power=0.0, phase=0.0)
-        compared = ties = parted = 0
-        for p, (res64, pw64, out64, hits) in enumerate(f64_pulses):
-            one, agg = make_pulse_fn(prod_state[0], prod_state[2], prod_state[3])
-            res32, pw32, dp32, dl32 = one(*pulse_args(prod_state[1], p))
-            out32 = agg(res32, pw32, dp32, dl32)
-            n_rec = int((res32.received >= 0).sum())
-            if n_rec > prod_state[2].replay_cap:
-                raise AssertionError(f"phase l {what}: {n_rec} lanes received, above the replay cap "
-                                     f"{prod_state[2].replay_cap}")
-            differ = ((res64.received != res32.received) | (res64.path != res32.path).any(0)
-                      | (res64.refl_depth != res32.refl_depth))
-            seq32 = torch.where(res32.tri_seq >= 0, to_brute[res32.tri_seq.clamp(min=0).long()], -1)
-            parted += int(((seq32 != res64.tri_seq).any(0) & ~differ).sum())
-            for lane in torch.nonzero(differ).reshape(-1).tolist():
-                step, edge = divergence(res64.tri_seq, seq32, hits, lane)
-                if ties < 20 or edge > EDGE_TIE:  # the first 20, and any that fails
-                    chain = [(s_, int(h.tri[lane]), float(h.beta[lane]), float(h.gamma[lane]))
-                             for s_, h in enumerate(hits) if bool(h.found[lane])]
-                    stamp(card, f"phase l {what} pulse {p} lane {lane}: received {int(res64.received[lane])} "
-                                f"(f64) / {int(res32.received[lane])} (production), path "
-                                f"{res64.path[:, lane].tolist()} / {res32.path[:, lane].tolist()}; the f64 hits "
-                                f"(segment, triangle, beta, gamma) {chain}; the chains part at step {step}, "
-                                f"where the f64 hit lies {edge:.3e} from its triangle's nearest edge")
-                if edge > EDGE_TIE:
-                    raise AssertionError(f"phase l {what}: lane {lane}'s decision differs {edge:.3e} from "
-                                         f"the triangle edge where the chains part (more than {EDGE_TIE})")
-                ties += 1
-            # compare the groups no differing lane belongs to
-            ok = (res64.received >= 0) & ~differ
-            for o_ in (out64, out32):
-                ok &= ~torch.isin(o_.agg.path_match, o_.agg.path_match[differ])
-            rel = lambda a, b: float((a[ok].double() / b[ok].double() - 1.0).abs().max()) if bool(ok.any()) else 0.0
-            worst["power"] = max(worst["power"], rel(pw32, pw64))
-            worst["agg_power"] = max(worst["agg_power"], rel(out32.agg.power, out64.agg.power))
-            ph = (out32.agg.phase.double() + out32.agg.phase_lo.double() - out64.agg.phase - out64.agg.phase_lo).abs()
-            ph = torch.minimum(ph, 2 * math.pi - ph)[ok]
-            worst["phase"] = max(worst["phase"], float(ph.max()) if ph.numel() else 0.0)
-            compared += int(ok.sum())
-        if CT.mt_traverse.launches == 0:
-            raise AssertionError(f"phase l {what}: the production side never launched the traversal kernel")
-        if compared == 0:
-            raise AssertionError(f"phase l {what}: no received lane to compare")
-        stamp(card, f"phase l {what}: {len(f64_pulses)} pulse(s), production preset (f32 kernel, "
-                    f"{CT.mt_traverse.launches} launches, + f64 replay) against the card's f64 brute-force "
-                    f"engine: decisions identical but for {ties} printed edge-tie lanes (on {parted} more lanes "
-                    f"the two chains hit other triangles, to the same decisions); on {compared} received "
-                    f"lanes the largest error is power {worst['power']:.3e}, aggregated power "
-                    f"{worst['agg_power']:.3e} (relative), phase {worst['phase']:.3e} rad")
-        if max(worst.values()) >= 1e-6:
-            raise AssertionError(f"phase l {what}: the 1e-6 power/phase contract fails: {worst}")
-
     prod = prepare_cpi(sphere_world(1), params, preset="production", device=dev, **SPHERE_KNOBS)
-    contract("sphere (config 1)", brute["bare defaults"][0][0], [brute["bare defaults"][1]], prod)
+    contract(card, dev, "sphere (config 1)", brute["bare defaults"][0][0], [brute["bare defaults"][1]], prod)
     del prod, brute
     moving64 = prepare_cpi(moving_world(1, subdiv=SPHERE_SUBDIV), params, dtype=f64, device=dev)
     moving32 = prepare_cpi(moving_world(1, subdiv=SPHERE_SUBDIV), params, device=dev, **MOVING_KNOBS)
-    contract(f"moving (config 2, subdivision {SPHERE_SUBDIV})", moving64[0], [f64_pulse(moving64, 0)], moving32)
+    contract(card, dev, f"moving (config 2, subdivision {SPHERE_SUBDIV})", moving64[0], [f64_pulse(moving64, 0)],
+             moving32)
     del moving64, moving32
     t_m = time.perf_counter()
 
@@ -704,18 +1062,6 @@ def main() -> int:
     card = card_line()
     torch.manual_seed(0)
     params = Parameters(num_rays=NUM_RAYS, max_refl_depth=2)
-
-    def reset_counts():
-        CT.mt_traverse.launches = 0
-        for mode in CT.mt_traverse.mode_launches:
-            CT.mt_traverse.mode_launches[mode] = 0
-        CT.mt_traverse.sweep_counts = torch.zeros(2, dtype=torch.int32, device=dev)
-
-    def sweep_counts():
-        """(calls that swept a tile, swept tiles) since reset_counts, as the
-        kernel counted them on the device."""
-        calls, tiles = CT.mt_traverse.sweep_counts.tolist()
-        return calls, tiles
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -819,7 +1165,7 @@ def main() -> int:
     del s_args
 
     # ---- 3. terrain main path
-    reset_counts()
+    reset_counts(dev)
     sync()
     t0 = time.perf_counter()
     out = trace_cpi(base, batch, cfg, spec)
@@ -891,26 +1237,14 @@ def main() -> int:
     if not bool(swept.any()):
         raise AssertionError("phase a: no tile of the moving segment 1 sweeps")
     sw_inp = tiles_of(torch.nonzero(swept).reshape(-1))
-    got = CT.mt_traverse(sw_inp, shape)
-    ref, pairs, clusters = plain_counted(lambda: CT.mt_traverse_reference(sw_inp, shape), shape.cluster_size)
-    sync()
-    for name, a, b in zip(("t", "tri", "beta", "gamma", "stats"), got[:4] + got[5:], ref[:4] + ref[5:]):
-        if not bit_equal(a, b):
-            raise AssertionError(f"phase a swept tiles alone: {name} differs from the plain version")
-    f = ref[0] < 3.0e38
-    k2m = dict(what=f"moving segment 1, its {int(swept.sum())} swept tiles alone", pairs=pairs,
-               err=max(float((a[f] - b[f]).abs().max()) if bool(f.any()) else 0.0
-                       for a, b in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3]))),
-               ms=time_ms(lambda: CT.mt_traverse(sw_inp, shape), 20),
-               plain_ms=time_ms(lambda: CT.mt_traverse_reference(sw_inp, shape), 1),
-               **bound(sw_inp, shape, got[5], pairs, clusters))
+    k2m = check_call(sw_inp, shape, f"moving segment 1, its {int(swept.sum())} swept tiles alone")
     cand_inp = tiles_of(torch.nonzero(~swept).reshape(-1))
     ms_cand = time_ms(lambda: CT.mt_traverse(cand_inp, shape), 20)
     stamp(card, f"phase a: its {int(swept.sum())} swept tiles alone (the sweep) {k2m['ms']:.3f} ms per "
-                f"call, bit-equal to plain with its counters ({pairs} pairs over {clusters} clusters, "
-                f"bound {k2m['bound_ms']:.4f} ms); its {int((~swept).sum())} candidate tiles alone (the "
-                f"candidate grid) {ms_cand:.3f} ms; the whole call {k3['ms']:.3f} ms")
-    del sw_inp, cand_inp, got, ref
+                f"call, bit-equal to plain with its counters ({k2m['pairs']} pairs over {k2m['clusters']} "
+                f"clusters, bound {k2m['bound_ms']:.4f} ms); its {int((~swept).sum())} candidate tiles alone "
+                f"(the candidate grid) {ms_cand:.3f} ms; the whole call {k3['ms']:.3f} ms")
+    del sw_inp, cand_inp
 
     # ---- b. the same segment with the shade emit (K4)
     s_knobs = {**m_knobs, "emit_shade": True}
@@ -919,7 +1253,7 @@ def main() -> int:
     compare_hits(k4["hit"], hit_p, "phase b moving segment 1", against="the run without the emit")
 
     # ---- c. moving main path
-    reset_counts()
+    reset_counts(dev)
     sync()
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message="replay cap overflow")  # fails the run
@@ -962,7 +1296,7 @@ def main() -> int:
 
     # ---- d. one moving pulse with the shade emit against the gather
     args0 = pulse_args(mbatch, 0)
-    reset_counts()
+    reset_counts(dev)
     one_s, agg_s = make_pulse_fn(mbase, dataclasses.replace(mcfg, shade_emit=True), mspec)
     res_s = one_s(*args0)
     out_s = agg_s(*res_s)
@@ -1068,7 +1402,7 @@ def main() -> int:
         state = prepare_cpi(terrain_world(PULSES, TRIS), params, preset="production", device=dev,
                             **option)
         prep_s = time.perf_counter() - t0
-        reset_counts()
+        reset_counts(dev)
         sync()
         t0 = time.perf_counter()
         first = trace_cpi(*state)
@@ -1108,14 +1442,24 @@ def main() -> int:
             stamp(card, f"phase j {what}: the profiler failed: {exc!r}")
     del base, batch, mbase, mbatch
     brute_phases(card, dev, params)
+    diel = dielectric_phases(card, dev)
     k2_calls = [k2m, k2, k8]
     kernels = [
-        entry("mt_traverse K1 (candidate windows)", "249", launches, k1),
+        # the terrain segment 1 (phase 2); its launches are the terrain's
+        # and the dielectric main paths', with the dielectric segment-2 and
+        # segment-3 calls beside it
+        {**entry("mt_traverse K1 (candidate windows)", "249", launches + diel["launches"], k1),
+         "launches_by_path": {"terrain": launches, "dielectric": diel["launches"]},
+         "calls": [{k: r[k] for k in ("what", "err", "ms", "plain_ms", "pairs", "bound_ms", "bound_by",
+                                      "tiles", "swept_tiles", "live_lanes")}
+                   | {"ps_per_pair": 1e9 * r["ms"] / r["pairs"]} for r in diel["calls"]]},
         # the sweep's main-path call: the moving segment's swept tiles; its
-        # launches are the moving CPI's calls that swept a tile
+        # launches are the moving CPI's calls that swept a tile (the
+        # dielectric path's beside them)
         {**entry("mt_traverse K2 (sweep)", "568", k2_launches,
                  {**k2m, "err": max(r["err"] for r in k2_calls), "bound_pairs": k2m["pairs"]}),
-         "swept_tiles": m_swept, "calls": sweep_calls(card, k2_calls)},
+         "swept_tiles": m_swept, "dielectric_sweep_calls": diel["sweeps"],
+         "dielectric_swept_tiles": diel["swept"], "calls": sweep_calls(card, k2_calls)},
         entry("mt_traverse K3 (mt_prune)", "557", k3_launches, k3),
         entry("mt_traverse K4 (emit_shade)", "521", k4_launches, k4),
         entry(f"mt_traverse K5 (resident live pack, cap {RESIDENT_CAP})", "398", mode_runs["K5"], k5),

@@ -44,6 +44,7 @@ def scene_base(jbase, device="cuda") -> SceneBase:
         tri_verts_f64=f64(jbase.tri_verts, jbase.tri_verts_lo, device),
         tri_corner_normals_f64=f64(jbase.tri_corner_normals, jbase.tri_corner_normals_lo, device),
         target_refl_f64=f64(jbase.target_refl, jbase.target_refl_lo, device),
+        target_refr_f64=f64(jbase.target_refr, jbase.target_refr_lo, device),
     )
 
 

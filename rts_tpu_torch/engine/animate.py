@@ -56,6 +56,7 @@ class SceneBase(NamedTuple):
     tri_verts_f64: torch.Tensor | None = None  # [T, 3, 3]
     tri_corner_normals_f64: torch.Tensor | None = None  # [T, 3, 3]
     target_refl_f64: torch.Tensor | None = None  # [NT]
+    target_refr_f64: torch.Tensor | None = None  # [NT]
 
     @property
     def num_targets(self) -> int:
@@ -96,7 +97,7 @@ def scene_base(
     if with_f64:
         d = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64), device=device)
         extra.update(tri_verts_f64=d(tv), tri_corner_normals_f64=d(scene.tri_normals),
-                     target_refl_f64=d(scene.target_refl_coeff))
+                     target_refl_f64=d(scene.target_refl_coeff), target_refr_f64=d(scene.target_refr_index))
     nrm = np.asarray(scene.tri_normals, np_dtype).reshape(-1, 9)
     shade = np.concatenate([nrm, np.asarray(scene.tri_target, np_dtype)[:, None]], axis=1)
     return SceneBase(

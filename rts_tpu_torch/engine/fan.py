@@ -10,10 +10,57 @@ the reversed-sine axis-angle matrix.  Ray order matches
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from rts_tpu_torch.core.rotation import rot_axis_reversed, rot_z
 from rts_tpu_torch.core.vec import normalize3, normalize3c, sph_to_cart
+
+
+def _spread3(v):
+    v = v.astype(np.uint64)
+    v = (v * np.uint64(0x00010001)) & np.uint64(0xFF0000FF)
+    v = (v * np.uint64(0x00000101)) & np.uint64(0x0F00F00F)
+    v = (v * np.uint64(0x00000011)) & np.uint64(0xC30C30C3)
+    v = (v * np.uint64(0x00000005)) & np.uint64(0x49249249)
+    return v
+
+
+def _spread2(v):
+    v = v.astype(np.uint64)
+    v = (v | (v << np.uint64(8))) & np.uint64(0x00FF00FF)
+    v = (v | (v << np.uint64(4))) & np.uint64(0x0F0F0F0F)
+    v = (v | (v << np.uint64(2))) & np.uint64(0x33333333)
+    v = (v | (v << np.uint64(1))) & np.uint64(0x55555555)
+    return v
+
+
+@functools.lru_cache(maxsize=32)
+def fan_tile_perm(num_rays: int, mode: str = "morton3") -> np.ndarray:
+    """Tiling permutation of the N^3 fan indices (host NumPy).
+
+    In the launch order (rayIndex = iz*N^2 + iy*N + ix) a ray tile is a
+    long thin angular strip; in a Morton order it is a compact patch that
+    overlaps fewer clusters.  ``trace_fan`` permutes the result back.
+    ``morton3`` interleaves (iz, iy, ix); ``morton2`` interleaves (iz, iy),
+    the two direction-bearing axes, with ix (the launch-range stretch)
+    as the minor raster axis."""
+    n = num_rays
+    iz, iy, ix = np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij")
+    if mode == "morton2":
+        bits = max(int(np.ceil(np.log2(max(n, 2)))), 1)
+        code = (
+            ((_spread2(iz.ravel()) << np.uint64(1)) | _spread2(iy.ravel())) << np.uint64(bits)
+        ) | ix.ravel().astype(np.uint64)
+    else:
+        code = (
+            (_spread3(iz.ravel()) << np.uint64(2))
+            | (_spread3(iy.ravel()) << np.uint64(1))
+            | _spread3(ix.ravel())
+        )
+    return np.argsort(code, kind="stable")
 
 
 def generate_fan_c(num_rays: int, tx_dir, tx_span, dtype=torch.float32, device="cuda"):
@@ -67,3 +114,9 @@ def generate_fan_c(num_rays: int, tx_dir, tx_span, dtype=torch.float32, device="
     orth = normalize3(rz[:, 1])
     r1 = rot_axis_reversed(orth, el, xp=torch)
     return rot_c(r1, d)  # not renormalised (ray_tracer.cu:203)
+
+
+def generate_fan(num_rays: int, tx_dir, tx_span, dtype=torch.float32, device="cuda"):
+    """Primary ray directions [N^3, 3] (row layout, for host code; the
+    engine reads ``generate_fan_c``)."""
+    return generate_fan_c(num_rays, tx_dir, tx_span, dtype=dtype, device=device).T

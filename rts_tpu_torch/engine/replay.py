@@ -17,8 +17,12 @@ first, as in the JAX package), decisions and discrete fields pass
 through untouched, and the refined ray length is returned as the f32
 pair (``ray_length``, ``ray_length_lo``) the JAX package returns, with
 ``ray_length + ray_length_lo`` equal to the f64 length to ~2^-48.
-Refraction is not ported (``trace_fan`` refuses it), so every recorded
-step reflects.
+
+Refraction happens only at a chain's first intersection (refl_depth ==
+0, normal_shader.cu:191-281), so the refracting steps are static per
+slot of the lane layout: slot 0 reflects at every recorded step, slot 1
+(the trapped chains) refracts at step 0, slot 2 (the exiting chains) at
+steps 0 and 1; every later step reflects.
 """
 
 from __future__ import annotations
@@ -48,6 +52,19 @@ def _cross(a, b):
 
 def _unit(v):
     return v / torch.sqrt(_dot(v, v))
+
+
+def _refract(i, n, ior):
+    """OptiX refract in f64 (``engine.wavefront._refract`` without the
+    strict-parity narrowing): the backface flip, and k clamped at 0 (a
+    lane the f32 trace refracted has k >= 0 up to rounding)."""
+    ndotv = _dot(i, n)
+    backface = ndotv > 0.0
+    eta = torch.where(backface, ior, 1.0 / ior)
+    nn = torch.where(backface, -n, n)
+    neg_ndotv = torch.where(backface, -ndotv, ndotv)
+    k = 1.0 - eta * eta * (1.0 - neg_ndotv * neg_ndotv)
+    return _unit(eta * i - (eta * neg_ndotv + torch.sqrt(torch.clamp(k, min=0.0))) * nn)
 
 
 def _rotate(r, v):
@@ -89,8 +106,6 @@ def replay_refine(base, res, cfg, extras, *, tx_span):
     and only they are replayed; received lanes beyond the cap keep their
     f32 values (``sim.check_replay_overflow`` warns about them).
     """
-    if cfg.refraction_on:
-        raise NotImplementedError("the replay of refraction chains is not ported (ROADMAP A.4)")
     if extras is None or base.tri_verts_f64 is None:
         raise ValueError("refine=True needs the float64 replay state: build it with "
                          "sim.prepare_cpi(..., refine=True)")
@@ -117,7 +132,9 @@ def _replay_core(base, res, cfg, extras, tx_span, lane_ids):
     lanes = res.ray_length.shape[0]
     nt = base.target_refl.shape[0]
     lane = torch.arange(lanes, device=dev) if lane_ids is None else lane_ids.long()
-    f_idx = lane % cfg.rays_per_fan  # fan cell of the lane (slot 0: no refraction)
+    n3 = cfg.rays_per_fan
+    slot = lane // n3  # 0 primary, 1 trapped, 2 exiting
+    f_idx = lane % n3  # a child keeps its primary's fan cell
 
     d_raw = _fan_dirs(cfg.num_rays, tx_span, extras.fan_rot, extras.bore, f_idx)
     direction = d_raw  # step 0's t is parametric in the unnormalised direction
@@ -127,6 +144,7 @@ def _replay_core(base, res, cfg, extras, tx_span, lane_ids):
     rl = torch.zeros(lanes, dtype=f64, device=dev)
     power = torch.ones(lanes, dtype=f64, device=dev)
     dop = torch.zeros(lanes, dtype=f64, device=dev)
+    refr_cur = torch.ones(lanes, dtype=f64, device=dev)  # refrIndex.y; .x is its previous value
 
     for c in range(res.tri_seq.shape[0]):
         tri = res.tri_seq[c]
@@ -160,7 +178,20 @@ def _replay_core(base, res, cfg, extras, tx_span, lane_ids):
         k0 = _unit(direction)
         # reflect: r = i - 2 n (i . n), not renormalised (engine semantics)
         d_new = seg_dir - nrm * (2.0 * _dot(seg_dir, nrm))
-        power_new = power_new * base.target_refl_f64[targ]
+        refl_c = base.target_refl_f64[targ]
+        if cfg.refraction_on and c < 2:
+            # refract at the slot's static refraction steps; the engine
+            # tests the index against 1 in its f32 value
+            refract_here = (slot >= 1) if c == 0 else (slot == 2)
+            at_unity = refr_cur.to(torch.float32) == 1.0
+            refr_cur_child = torch.where(at_unity, base.target_refr_f64[targ], 1.0)
+            d_new = torch.where(refract_here, _refract(seg_dir, nrm, refr_cur_child / refr_cur), d_new)
+            # the refracted share (1 - |rc|) unless the reflection budget
+            # is spent (normal_shader.cu:244-246)
+            share = 1.0 - refl_c.abs() if cfg.max_refl_dev > 1 else torch.ones_like(refl_c)
+            refl_c = torch.where(refract_here, share, refl_c)
+            refr_cur = torch.where(have & refract_here, refr_cur_child, refr_cur)
+        power_new = power_new * refl_c
         dop_new = dop + _dot(extras.vel[targ].T, _unit(d_new) - k0)
 
         rl = torch.where(have, rl + t, rl)

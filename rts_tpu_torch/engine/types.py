@@ -3,10 +3,6 @@
 
 ``TraceConfig`` has the same fields and derived properties as the JAX
 one, so a configuration converts one to one (``rts_tpu_torch.convert``).
-Options whose work is not ported yet (refraction, Morton fan tiling,
-lane compaction) are kept as fields but refused by the code that would
-read them, naming their ROADMAP item (see ``sim.cpi.prepare_cpi`` and
-``engine.wavefront.trace_fan``).
 
 ``DeviceScene`` is the flat scene of the brute-force intersector, with
 the per-triangle vectors it needs precomputed once
@@ -119,7 +115,7 @@ class TraceConfig:
 
     num_rays: int
     max_refl_dev: int
-    max_refr_dev: int  # the port traces reflections only (0); refraction is ROADMAP A.4
+    max_refr_dev: int
     interpolate_smooth: bool = True
     strict_parity: bool = False  # the reference's float32 narrowings (the parity engine)
     tri_chunk: int = 512  # triangles per brute-force chunk
@@ -140,13 +136,13 @@ class TraceConfig:
     p1_super_k: int | None = None
     p1_fanout0: int | None = None
     p1_super_k0: int | None = None
-    fan_order: str = "raster"  # Morton fan tiling: not ported (ROADMAP A.4)
+    fan_order: str = "raster"  # "morton2"/"morton3": the fan traced in a Morton tile order
 
     @property
     def fan_tiling(self) -> bool:
         return self.fan_order != "raster"
 
-    compact_lanes: bool = False  # lane sort before late segments: not ported (ROADMAP A.4)
+    compact_lanes: bool = False  # lane sort after the spawn segments
     compact_narrow: int = 0  # narrow late segments (0/1 off, -1 auto, N)
     interpret: bool = False  # Pallas interpreter flag: no meaning here
     refine: bool = False  # precision replay, native float64 here (engine/replay.py)

@@ -82,7 +82,6 @@ _PREPARE_DEFAULTS = dict(
 # options whose non-default values select work that is not ported yet
 _NOT_PORTED = {
     "rx_geom_on_device": (False, "on-device receiver geometry (ROADMAP A.8)"),
-    "fan_order": ("raster", "Morton fan tiling (ROADMAP A.4)"),
 }
 
 
@@ -108,8 +107,7 @@ def prepare_cpi(
     created: the card unless the caller asks for another (there is no
     fallback; the CPU runs the traversal's plain version).
     Configurations the port cannot run yet raise ``NotImplementedError``
-    naming the ROADMAP item: refraction (``max_refr_depth > 0``) and
-    Morton fan tiling (A.4), on-device receiver geometry (A.8).
+    naming the ROADMAP item: on-device receiver geometry (A.8).
 
     ``refine=True`` (the production preset) also builds the float64 state
     of the precision replay: f64 copies of the base corners, normals and
@@ -130,8 +128,6 @@ def prepare_cpi(
             raise NotImplementedError(
                 f"{name}={opts[name]!r} needs {what}, not ported to rts_tpu_torch yet"
             )
-    if params.max_refr_depth > 0:
-        raise NotImplementedError("refraction (max_refr_depth > 0) is not ported to rts_tpu_torch yet (ROADMAP A.4)")
     accel = opts["accel"]
     if accel == "cluster" and dtype != torch.float32:
         raise ValueError("accel='cluster' traces in float32, the traversal kernel's type")

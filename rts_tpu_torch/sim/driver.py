@@ -106,8 +106,6 @@ def run(
         params, strict_parity=strict_parity, tri_chunk=tri_chunk,
         accel=accel, cluster_size=cluster_size, **trace_options,
     )
-    if params.max_refr_depth > 0:
-        raise NotImplementedError("refraction (max_refr_depth > 0) is not ported to rts_tpu_torch yet (ROADMAP A.4)")
     if accel == "cluster" and dtype != torch.float32:
         raise ValueError("accel='cluster' traces in float32, the traversal kernel's type")
     cspeed = params.c

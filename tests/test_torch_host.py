@@ -169,7 +169,7 @@ def test_prepare_cpi_state_equal_and_convert(refine):
         assert all(getattr(tb, f) is None and getattr(cb, f) is None for f in f64)
         return
     pairs = [(getattr(cb, f), getattr(tb, f)) for f in f64] + list(zip(cbat.refine, tbat.refine))
-    assert len(pairs) == 3 + 8
+    assert len(pairs) == 4 + 8
     for name, (a, b) in zip(f64 + list(tbat.refine._fields), pairs):
         assert a.dtype == b.dtype == torch.float64, name
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13, atol=1e-13, err_msg=name)
@@ -188,15 +188,14 @@ def test_prepare_cpi_state_equal_and_convert(refine):
     "options",
     [
         dict(preset="production", rx_geom_on_device=True),
-        dict(preset="production", refraction=True),
-        # the brute-force and parity engines run; what they cannot run yet
-        # still refuses.  The ids date from when these two options refused
-        # alone: "brute" is now refraction on the brute engine (A.4),
-        # "strict_parity" on-device receiver geometry under the parity
-        # preset (A.8)
-        dict(accel="brute", refraction=True),
+        # refraction, the brute-force and parity engines and Morton fan
+        # tiling run; what they cannot run yet still refuses.  The ids date
+        # from when these options refused alone: each case is now its
+        # option combined with on-device receiver geometry (A.8)
+        dict(preset="production", refraction=True, rx_geom_on_device=True),
+        dict(accel="brute", refraction=True, rx_geom_on_device=True),
         dict(preset="parity", rx_geom_on_device=True),
-        dict(preset="production", fan_order="morton2"),
+        dict(preset="production", fan_order="morton2", rx_geom_on_device=True),
     ],
     ids=["rx_geom_on_device", "refraction", "brute", "strict_parity", "fan_order"],
 )
@@ -204,7 +203,7 @@ def test_prepare_cpi_refuses_unported(options):
     options = dict(options)
     params = TParameters(num_rays=3, max_refl_depth=1,
                          max_refr_depth=2 if options.pop("refraction", False) else 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         ts.prepare_cpi(make_world(ts, pulses=1), params, device=DEVICE, **options)
 
 

@@ -2,7 +2,8 @@
 rts_tpu's jitted ``trace_pulse`` and the NumPy float64 oracle.
 
 The scenes are those of tests/test_engine_vs_oracle.py that reflect only
-(refraction is ROADMAP A.4; the fuzz scenes run with max_refr_depth=0).
+(the fuzz scenes run with max_refr_depth=0); its refraction scenes are in
+tests/test_torch_refraction.py.
 Both engines trace in float64 on the CPU from the same compiled scene and
 receiver geometry.  Without strict parity every discrete output (received,
 refl/refr depth, path rows) is identical and the continuous ones,

@@ -4,7 +4,9 @@
 
 Drives the port's main paths through their public entry points and fails
 with a non-zero exit at the first error: the production CPI of the
-1M-triangle terrain (BASELINE config 4), the same CPI with the
+1M-triangle terrain (BASELINE config 4), the 256-pulse CPI of the same
+terrain rendered to a compressed range-Doppler map (config 5), the
+same CPI with the
 traversal's live-cluster pack (K5, ``bench.py --resident-cap``) and with
 per-candidate windows (K6, ``--no-mt-union``), the moving-shell CPI of
 four 1.31M-triangle icospheres (BASELINE config 2, ``bench.py --scene
@@ -12,7 +14,8 @@ moving``), the default entry points: the f64 brute-force engine and
 parity preset on the sphere scene (config 1), held to the 1e-6 contract
 against the production preset, and the sequential driver on README.md's
 quick start; and the dielectric CPI with refraction (config 3,
-``bench.py --scene dielectric``).  There is no CPU fallback: without a
+``bench.py --scene dielectric``); the physics models, and the CLI on
+examples/scene.xml.  There is no CPU fallback: without a
 CUDA card it exits non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
@@ -61,9 +64,11 @@ Phases (each line stamped with the card's name and power limit):
      launches counted, no live-set overflow, a second run bit-identical;
   j. profile: torch.profiler over one warm pulse of each main path (the
      terrain at the production preset, the moving shells at MOVING_KNOBS,
-     and after phase m the dielectric CPI of phase n):
-     device time against the wall, the kernel's share of device time, the
-     five largest operators by device time.  Printed only; it gates nothing;
+     after phase m the dielectric CPI of phase n, and in phase p config
+     5): device time against the wall, the kernel's share of device time,
+     the five largest operators by device time; the aten operators issued
+     and the five largest by their own host time.  Printed only; it gates
+     nothing;
   k. the default entry point: prepare_cpi(dtype=float64) with no options
      (the brute-force engine) and with preset="parity" on the sphere scene
      (BASELINE config 1, its icosphere cut to 20,480 triangles), one pulse
@@ -103,7 +108,33 @@ Phases (each line stamped with the card's name and power limit):
      children's chains: on config 3 with its terrain cut to ~20k triangles
      (DIELECTRIC_CUT_TRIS), and on the dielectric plate of
      tests/test_replay.py:83, whose forward receiver must receive exiting
-     chains.
+     chains;
+  p. BASELINE config 5 (examples/terrain_imaging.py's scene at the 1M
+     terrain with its moving 30 m plate; 256 pulses at 2 kHz, 31^3 rays,
+     LFM 5e12 Hz/s over 4 us) through run_cpi(preset="production") at
+     bench.py's cpi256 knobs (ray_tile 128, sub_tiles 2, candidates 32,
+     replay_cap 64, raised to the smallest power of two at or above the
+     most lanes a pulse receives if that overflows it, agg_cap 1024):
+     seconds per CPI on a warm second run (bit-identical), received lanes
+     a pulse, K1 launches and swept tiles, peak device memory; then
+     render_cpi_result (compressed, Taylor range window): its ms and peak
+     memory, the map within 1e-5 of its peak of the same render of the
+     same CpiResult on the CPU with the same argmax, the strongest
+     return's range and Doppler; K1 against plain on pulse 0's segment-1
+     operands, bit for bit, with time, pairs and bound; the occupancy at
+     (128, 2); a profile of one pulse (phase j);
+  q. every antenna and RCS model on 1e6 seeded directions, card against
+     CPU, within 1e-3 of the model's peak in float32 and 1e-10 in
+     float64; the terrain CPI of phase 3 unrefined with
+     rx_geom_on_device=True against False: the geometry within rtol 1e-6
+     / atol 5e-6, received lanes identical but for lanes printed with
+     their distance to the acceptance window's edge, which must be
+     within 1e-5 rad;
+  r. the CLI (rts_tpu_torch.__main__.main) on examples/scene.xml: run
+     --cpi --accel cluster --refine on the card against --device cpu
+     (power and phase within 1e-6), the default run (the f64 driver)
+     within 1e-9 (phase m's rule), the same counts printed; the saved
+     .npz read back equal to a run's in-memory responses; info.
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -118,7 +149,8 @@ kernel's picoseconds per pair it evaluated.
 
 The line before the card line is a JSON object with the kernel's modes,
 their launches in the main paths, errors, times and bounds (K1 with the
-dielectric segment-2 and segment-3 calls; the sweep, K2, with each of its
+dielectric segment-2 and segment-3 calls and config 5's segment 1, its
+launches by path; the sweep, K2, with each of its
 three calls: terrain-20k sweep-only, the terrain overflow, the moving
 swept tiles); the last line is the JSON result.
 """
@@ -166,6 +198,14 @@ README_PULSES = 64  # phase m: README.md's quick start as written
 # phase o: BASELINE config 3's terrain cut for the contract against the f64
 # brute-force engine (its cost is lanes x triangles: 3 x 63^3 x 20k a segment)
 DIELECTRIC_CUT_TRIS = 20_000
+# BASELINE config 5 (phase p): examples/terrain_imaging.py's scene at the
+# 1M terrain, bench.py's cpi256 pulses, fan and knobs (bench.py:394-422)
+IMAGING_PULSES = 256
+IMAGING_RAYS = 31
+IMAGING_KNOBS = dict(ray_tile=128, sub_tiles=2, candidates=32, replay_cap=64, agg_cap=1024)
+IMAGING_ALT, IMAGING_PRF, IMAGING_FS = 4000.0, 2000.0, 50e6
+IMAGING_CHIRP, IMAGING_PULSE = 5e12, 4e-6  # LFM: 20 MHz over 4 us
+MODEL_DIRS = 1_000_000  # phase q: directions each physics model is held on
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
 # outside the tensor cores, and the HBM rate.
 FP32_PEAK = 67e12
@@ -565,6 +605,13 @@ def profile_pulse(card: str, what: str, pulse) -> None:
                 f"({100 * kern_ms / busy_ms:.1f}% of device time); the largest operators by device time:")
     for e in sorted(ops, key=device_us, reverse=True)[:5]:
         stamp(card, f"phase j {what}:   {device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    # the host's side: operators issued and the five largest by their own host time
+    host = [e for e in prof.key_averages() if getattr(e, "device_type", None) != DeviceType.CUDA]
+    aten = sum(e.count for e in host if e.key.startswith("aten::"))
+    stamp(card, f"phase j {what}: {aten} aten operators issued, {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} "
+                f"ms of host time under the profiler; the largest by their own host time:")
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:5]:
+        stamp(card, f"phase j {what}:   {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
 
 def device_launches(fn):
@@ -1044,6 +1091,392 @@ def brute_phases(card: str, dev, params) -> None:
     stamp(card, f"phases k, l, m: {t_l - t_k:.1f} s, {t_m - t_l:.1f} s, {t_end - t_m:.1f} s")
 
 
+def imaging_world(pulses: int, tris: int):
+    """BASELINE config 5 as examples/terrain_imaging.py:37-69 builds it: the
+    fractal terrain of config 4 (~``tris`` triangles, 12 km, 300 m peaks)
+    and a 30 m plate 400 m up moving at 12 m/s, a chirped radar (LFM 5e12
+    Hz/s over 4 us, 2 kHz) 4 km up looking down (capture sphere (30, 1.2,
+    1.2))."""
+    from rts_tpu_torch.sim import (AttitudePath, Path, RadarSignal, Receiver, RotationPath,
+                                   Target, Transmitter, World)
+
+    n = max(2, round(math.sqrt(tris / 2)) + 1)
+    down = RotationPath(elevation=-math.pi / 2)
+    w = World()
+    w.add(Transmitter(path=Path.fixed(0.0, 0.0, IMAGING_ALT), rotation=down, pulse_count=pulses, prf=IMAGING_PRF,
+                      wave=RadarSignal(carrier=10e9, chirp_rate=IMAGING_CHIRP, length=IMAGING_PULSE),
+                      tx_span=(0.15, 0.15, 0.0)))
+    w.add(Receiver(path=Path.fixed(0.0, 0.0, IMAGING_ALT), rotation=down, sphere=(30.0, 1.2, 1.2)))
+    w.add(Target(shape="terrain", terrain=(n, 12000.0, 300.0, 3), refl_coeff=0.9))
+    w.add(Target(shape="rect", rect=(2.0, 30.0, 30.0), attitude=AttitudePath(pitch=math.pi / 2),
+                 path=Path.linear([(0.0, (0.0, 0.0, 400.0)), (1.0, (12.0, 0.0, 400.0))]), refl_coeff=0.9))
+    return w
+
+
+def to_cpu(x):
+    """A result (nested named tuples of tensors) moved to the CPU."""
+    if isinstance(x, tuple):
+        return type(x)(*(to_cpu(y) for y in x))
+    return x.cpu()
+
+
+def segment_calls(state, p: int):
+    """Pulse p of a clustered CPI through trace_cpi's pulse function, with
+    every traversal call's phase-2 operands kept: (its trace, [(inp,
+    shape), ...] in segment order)."""
+    from rts_tpu_torch.engine import wavefront as W
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    calls = []
+    inner = W.closest_hit_clustered
+
+    def spy(*a, **k):
+        def keep(inp, shape):
+            calls.append((inp, shape))
+            return CT.mt_traverse(inp, shape)
+
+        return inner(*a, **{**k, "traverse": keep})
+
+    W.closest_hit_clustered = spy
+    try:
+        res = make_pulse_fn(state[0], state[2], state[3])[0](*pulse_args(state[1], p))[0]
+    finally:
+        W.closest_hit_clustered = inner
+    return res, calls
+
+
+def window_edge(state, p: int, lane: int) -> float:
+    """The angular distance (rad) to its acceptance window's nearest edge
+    of every point where lane ``lane`` of pulse p, traced again with
+    ``state``'s geometry, crosses a receiver sphere on a missing segment:
+    the smallest over segments, receivers and roots (inf if none)."""
+    from rts_tpu_torch.engine import wavefront as W
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
+
+    seen = []
+    inner = W._process_miss
+
+    def spy(st, miss, rx, *a, **k):
+        seen.append((st.origin[:, lane].double(), st.direction[:, lane].double(), bool((miss & ~st.end)[lane]), rx))
+        return inner(st, miss, rx, *a, **k)
+
+    W._process_miss = spy
+    try:  # every segment at full width, so that lane indexes the state (bit-identical)
+        make_pulse_fn(state[0], dataclasses.replace(state[2], compact_narrow=0), state[3])[0](*pulse_args(state[1], p))
+    finally:
+        W._process_miss = inner
+    wrap = lambda x: abs((x + math.pi) % (2 * math.pi) - math.pi)
+    half = math.pi / 2
+    best = float("inf")
+    for o, d, live, rx in seen:
+        for i in range(rx.num_rx) if live else ():
+            # the window's edges, with the second region of a window over a
+            # pole (wavefront._process_miss): theta + pi, phi folded back
+            t0, t1, p0, p1 = (float(x[i]) for x in (rx.min_theta, rx.max_theta, rx.min_phi, rx.max_phi))
+            over_pole = p0 < -half or p1 > half
+            th_edges = [t0, t1] + ([t0 + math.pi, t1 + math.pi] if over_pole else [])
+            ph_edges = ([e for e in (p0, p1) if -half < e < half] + ([-math.pi - p0] if p0 < -half else [])
+                        + ([math.pi - p1] if p1 > half else []))
+            c, r = rx.centre[i].double(), float(rx.radius[i])
+            b, cq, a = 2.0 * float((o - c) @ d), float((o - c) @ (o - c)) - r * r, float(d @ d)
+            disc = b * b - 4.0 * a * cq
+            for t in ((-b - math.sqrt(disc)) / (2 * a), (-b + math.sqrt(disc)) / (2 * a)) if disc > 0 else ():
+                if t < 0:
+                    continue
+                rel = o + t * d - c
+                th = math.atan2(float(rel[1]), float(rel[0]))
+                ph = math.atan2(float(rel[2]), math.hypot(float(rel[0]), float(rel[1])))
+                best = min([best] + [wrap(th - e) for e in th_edges] + [abs(ph - e) for e in ph_edges])
+    return best
+
+
+def render_phases(card: str, dev) -> dict:
+    """Phases p, q and r: BASELINE config 5 rendered to a compressed
+    range-Doppler map, the physics models and the on-device receiver
+    geometry, and the CLI on examples/scene.xml.  Returns what the kernels
+    line adds: K1's launches on config 5 and through the CLI, and the
+    config-5 segment-1 call."""
+    import numpy as np
+
+    from rts_tpu_torch import Parameters
+    from rts_tpu_torch.__main__ import main as cli
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
+    from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.physics import antenna as A
+    from rts_tpu_torch.physics import rcs as R
+    from rts_tpu_torch.sim import (RenderGrid, load_world, prepare_cpi, render_cpi_result, run_all_cpi,
+                                   run_cpi)
+    from rts_tpu_torch.sim.export import load_responses
+
+    t_p = time.perf_counter()
+    C = 299792458.0
+    params = Parameters(num_rays=IMAGING_RAYS, max_refl_depth=2)
+
+    # ---- p. BASELINE config 5: the 256-pulse CPI, then its map
+    occ = (ctypes.c_int * 3)()
+    err = CT._load().mt_traverse_occupancy(IMAGING_KNOBS["ray_tile"], IMAGING_KNOBS["sub_tiles"], occ)
+    if err:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    stamp(card, f"phase p occupancy (ray_tile {IMAGING_KNOBS['ray_tile']}, sub_tiles "
+                f"{IMAGING_KNOBS['sub_tiles']}): blocks of {occ[0]} threads; candidate grid {occ[1]} blocks, "
+                f"{occ[1] * occ[0] // 32} warps per SM; sweep grid {occ[2]} blocks, {occ[2] * occ[0] // 32} "
+                f"warps per SM")
+    knobs = dict(IMAGING_KNOBS)
+    for attempt in range(2):
+        held0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(dev)
+        sync()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            out = run_cpi(imaging_world(IMAGING_PULSES, TRIS), params, preset="production", device=dev,
+                          attach_responses=False, **knobs)
+            sync()
+            run_s = time.perf_counter() - t0
+        launches, (sweeps, swept) = CT.mt_traverse.launches, sweep_counts()
+        trace_peak = (torch.cuda.max_memory_allocated(dev) - held0) / 1e9
+        per_pulse = (out.received >= 0).sum(1)
+        most = int(per_pulse.max())
+        if not any("replay cap overflow" in str(w.message) for w in caught):
+            break
+        if attempt:
+            raise AssertionError(f"phase p: the replay cap {knobs['replay_cap']} overflowed again")
+        knobs["replay_cap"] = 1 << max(0, most - 1).bit_length()
+        stamp(card, f"phase p: a pulse received {most} lanes, over the replay cap {IMAGING_KNOBS['replay_cap']}: "
+                    f"the cap is now {knobs['replay_cap']}, the smallest power of two at or above it")
+    if launches == 0 or most == 0:
+        raise AssertionError(f"phase p: {launches} kernel launches, {most} lanes received at most a pulse")
+    if tuple(out.received.shape) != (IMAGING_PULSES, IMAGING_RAYS**3):
+        raise AssertionError(f"phase p: result shape {tuple(out.received.shape)}")
+    if not all(bool(torch.isfinite(a).all()) for a in (out.power, out.doppler, out.delay, *out.agg)
+               if a.dtype.is_floating_point):
+        raise AssertionError("phase p: a non-finite output")
+    t0 = time.perf_counter()
+    state = prepare_cpi(imaging_world(IMAGING_PULSES, TRIS), params, preset="production", device=dev, **knobs)
+    prep_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    again = trace_cpi(*state)
+    sync()
+    warm_s = time.perf_counter() - t0
+    if not same_result(out, again):
+        raise AssertionError("phase p: the warm run differs from the first: not deterministic")
+    n_tris = int(state[0].tri_verts.shape[0])
+    stamp(card, f"phase p config 5 (examples/terrain_imaging.py's scene, {n_tris} triangles; {IMAGING_PULSES} "
+                f"pulses x {IMAGING_RAYS}^3 rays, ray_tile {knobs['ray_tile']}, sub_tiles {knobs['sub_tiles']}, "
+                f"candidates {knobs['candidates']}, replay cap {knobs['replay_cap']}): {warm_s:.3f} s per "
+                f"{IMAGING_PULSES}-pulse CPI on the warm run ({1e3 * warm_s / IMAGING_PULSES:.1f} ms/pulse, "
+                f"bit-identical to the first; run_cpi with its prep {run_s:.3f} s, prepare_cpi {prep_s:.2f} s); "
+                f"received lanes a pulse {int(per_pulse.min())}-{most} (mean "
+                f"{float(per_pulse.float().mean()):.1f}), no replay-cap overflow; {launches} K1 launches "
+                f"({launches / IMAGING_PULSES:.2f} a pulse; {sweeps} swept {swept} tiles); peak device memory "
+                f"of the trace {trace_peak:.3f} GB above the {held0 / 1e9:.3f} GB held before it")
+    del again
+
+    # the map on the card, against the same render of the same CpiResult on the CPU
+    grid = RenderGrid(IMAGING_FS, 1024, 2 * (IMAGING_ALT - 450.0) / C)
+    rkw = dict(pulse_length=IMAGING_PULSE, chirp_rate=IMAGING_CHIRP, compress=True, range_window="taylor")
+    render_cpi_result(out, 0, grid, **rkw)
+    sync()
+    held0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rd, samples = render_cpi_result(out, 0, grid, **rkw)
+    sync()
+    render_ms = 1e3 * (time.perf_counter() - t0) / reps
+    render_peak = (torch.cuda.max_memory_allocated(dev) - held0) / 1e9
+    cpu_out = to_cpu(out)
+    t0 = time.perf_counter()
+    rd_cpu, _ = render_cpi_result(cpu_out, 0, grid, **rkw)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    peak = float(rd_cpu.max())
+    map_err = float((rd.cpu() - rd_cpu).abs().max()) / peak
+    if tuple(rd.shape) != (IMAGING_PULSES, 1024) or not bool(torch.isfinite(rd).all()) or peak <= 0:
+        raise AssertionError(f"phase p: map of shape {tuple(rd.shape)}, peak {peak}")
+    if map_err > 1e-5 or int(rd.argmax()) != int(rd_cpu.argmax()):
+        raise AssertionError(f"phase p: the card's map is {map_err:.3e} of its peak from the CPU's, or its "
+                             f"argmax differs ({int(rd.argmax())} against {int(rd_cpu.argmax())})")
+    row, col = divmod(int(rd.argmax()), rd.shape[1])
+    valid = out.agg.emit & (out.received == 0)
+    stamp(card, f"phase p render (render_cpi_result, LFM, compressed, Taylor range window; {rd.dtype} map "
+                f"{tuple(rd.shape)} from {int(valid.sum())} emitted lanes, at most {int(valid.sum(1).max())} a "
+                f"pulse): {render_ms:.2f} ms on the card (CPU {cpu_ms:.1f} ms), peak device memory "
+                f"{render_peak:.4f} GB above what the trace holds; the card's map within {map_err:.3e} of its "
+                f"peak of the CPU's, argmax equal; strongest return: range "
+                f"{(grid.window_start + col / IMAGING_FS) * C / 2:.1f} m, Doppler "
+                f"{(row - IMAGING_PULSES // 2) * IMAGING_PRF / IMAGING_PULSES:+.1f} Hz (bin {row}, {col})")
+    del rd, samples, rd_cpu, cpu_out
+
+    # K1 on pulse 0's segment-1 operands at this shape
+    res0, calls = segment_calls(state, 0)
+    if not torch.equal(res0.received, out.received[0]):
+        raise AssertionError("phase p: the seen pulse differs from the CPI's pulse 0")
+    k1 = check_call(*calls[0], "config 5 segment 1")
+    inp = calls[0][0]
+    k1.update(tiles=int(inp.meta.shape[0]), swept_tiles=int((inp.meta[:, 1] != 0).sum()),
+              live_lanes=state[2].rays_per_fan)  # segment 1: every primary
+    stamp(card, f"phase p segment 1: kernel bit-equal to plain (t/tri/beta/gamma, counters); {k1['tiles']} "
+                f"tiles of {knobs['ray_tile']} ({k1['swept_tiles']} swept); kernel {k1['ms']:.4f} ms, plain "
+                f"{k1['plain_ms']:.3f} ms; {k1['pairs']} pairs over {k1['clusters']} clusters; bound "
+                f"{k1['bound_ms']:.4f} ms by {k1['bound_by']} ({100 * k1['bound_ms'] / k1['ms']:.2f}%), "
+                f"{1e9 * k1['ms'] / k1['pairs']:.3f} ps/pair")
+    try:
+        one, agg = make_pulse_fn(state[0], state[2], state[3])
+        args0 = pulse_args(state[1], 0)
+        profile_pulse(card, "config 5", lambda: agg(*one(*args0)))
+    except Exception as exc:  # the profile measures; it gates nothing
+        stamp(card, f"phase j config 5: the profiler failed: {exc!r}")
+    del out, state, res0, calls, inp
+    t_q = time.perf_counter()
+
+    # ---- q. the physics models on the card against the CPU
+    # float32 on uniform directions; float64 with half of them within ~0.05
+    # rad of the boresight, where an f32 off_angle is ill-conditioned (acos
+    # near 1: ~3.5e-4 rad an ulp) and steep patterns part by more than 1e-3
+    gen = torch.Generator().manual_seed(5)
+    n = MODEL_DIRS
+    bore = (0.3, -0.2)
+    uniform = (torch.rand(n, generator=gen, dtype=torch.float64) * 2 * math.pi - math.pi,
+               torch.rand(n, generator=gen, dtype=torch.float64) * math.pi - math.pi / 2)
+    near = torch.randn(2, n // 2, generator=gen, dtype=torch.float64) * 0.05
+    dirs = {torch.float32: uniform,
+            torch.float64: tuple(torch.cat([u[n // 2:], b + x]) for u, b, x in zip(uniform, bore, near))}
+    wl = C / 10e9
+    table = tuple(map(tuple, torch.rand(7, 13, generator=gen, dtype=torch.float64).add(0.5).tolist()))
+    models = [A.IsotropicAntenna(), A.SincAntenna(alpha=2.0, beta=1.0, gamma=2.0),
+              A.GaussianAntenna(az_scale=8.0, el_scale=8.0), A.SquareHornAntenna(dimension=0.3),
+              A.ParabolicAntenna(diameter=1.0),
+              A.TableAntenna(angles=(0.0, 0.1, 0.3, 0.8, 1.5), gains=(30.0, 25.0, 6.0, 0.5, 0.01)),
+              R.IsoRCS(sigma=1.5), R.SphereRCS(radius=2.0), R.PlateRCS(width=2.0, height=3.0),
+              R.TableRCS(az_grid=tuple(np.linspace(-math.pi, math.pi, 13).tolist()),
+                         el_grid=tuple(np.linspace(-math.pi / 2, math.pi / 2, 7).tolist()), table=table)]
+    worst = {}
+    for dtype, tol in ((torch.float32, 1e-3), (torch.float64, 1e-10)):
+        for m in models:
+            def ev(device):
+                a, e = (x.to(device, dtype) for x in dirs[dtype])
+                if hasattr(m, "gain"):
+                    return m.gain(a, e, *bore, wl)
+                return m.rcs(3 * a, 3 * e, wl)  # angle sums past the half-angle domain
+            got, ref = ev(dev), ev("cpu")
+            if got.device.type != dev.type or got.dtype != dtype:
+                raise AssertionError(f"phase q: {type(m).__name__} gave {got.dtype} on {got.device}")
+            err = float((got.cpu() - ref).abs().max() / ref.abs().max())
+            worst[(type(m).__name__, str(dtype)[6:])] = err
+            if err > tol:
+                raise AssertionError(f"phase q: {type(m).__name__} {dtype} on the card is {err:.3e} of its peak "
+                                     f"from the CPU's (over {tol})")
+    stamp(card, f"phase q models on {n} seeded directions (uniform; in float64 half of them within ~0.05 rad "
+                f"of the boresight), card against CPU, largest error relative to the model's peak: "
+                + ", ".join(f"{k[0]} {k[1]} {v:.2e}" for k, v in worst.items()))
+
+    # the terrain CPI of phase 3 unrefined, receiver geometry on the device against the host's
+    tparams = Parameters(num_rays=NUM_RAYS, max_refl_depth=2)
+    states, outs = [], []
+    for on_device in (False, True):
+        st = prepare_cpi(terrain_world(PULSES, TRIS), tparams, preset="production", device=dev, refine=False,
+                         rx_geom_on_device=on_device)
+        states.append(st)
+        outs.append(trace_cpi(*st))
+    sync()
+    for name in ("centre", "radius", "min_theta", "max_theta", "min_phi", "max_phi"):
+        a, b = getattr(states[1][1].rx_geom, name), getattr(states[0][1].rx_geom, name)
+        if not bool(torch.allclose(a, b, rtol=1e-6, atol=5e-6)):
+            raise AssertionError(f"phase q: on-device {name} differs from the host's by "
+                                 f"{float((a - b).abs().max()):.3e}")
+    geo_err = max(float((getattr(states[1][1].rx_geom, f) - getattr(states[0][1].rx_geom, f)).abs().max())
+                  for f in ("centre", "min_theta", "max_theta", "min_phi", "max_phi"))
+    differ = torch.nonzero(outs[0].received != outs[1].received).tolist()
+    for p, lane in differ:
+        edge = min(window_edge(states[0], p, lane), window_edge(states[1], p, lane))
+        stamp(card, f"phase q pulse {p} lane {lane}: received {int(outs[0].received[p, lane])} (host geometry) / "
+                    f"{int(outs[1].received[p, lane])} (on the device), {edge:.3e} rad from its window's edge")
+        if edge > 1e-5:
+            raise AssertionError(f"phase q: lane {lane} of pulse {p} is received otherwise {edge:.3e} rad "
+                                 f"from the window's edge")
+    stamp(card, f"phase q receiver geometry on the device: terrain CPI ({PULSES} pulses x {NUM_RAYS}^3, "
+                f"refine=False): geometry within {geo_err:.3e} of the host's (rtol 1e-6, atol 5e-6); "
+                f"{int((outs[1].received >= 0).sum())} received lanes, {len(differ)} received otherwise")
+    del states, outs
+    t_r = time.perf_counter()
+
+    # ---- r. the CLI on examples/scene.xml, card against CPU
+    scene = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "scene.xml")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "rts_tpu_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    import contextlib
+    import io
+
+    def run_cli(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli(list(argv)) != 0:
+                raise AssertionError(f"phase r: {argv} failed")
+        return buf.getvalue()
+
+    files, printed = {}, {}
+    reset_counts(dev)
+    sync()
+    for what, extra in (("cpi", ["--cpi", "--accel", "cluster", "--refine"]), ("run", [])):
+        for where in ("cuda", "cpu"):
+            files[what, where] = os.path.join(out_dir, f"cli_{what}_{where}.npz")
+            t0 = time.perf_counter()
+            printed[what, where] = run_cli("run", scene, *extra, "--out", files[what, where],
+                                           *(["--device", "cpu"] if where == "cpu" else []))
+            stamp(card, f"phase r run {' '.join(extra) or '(the f64 driver)'} on the {where}: "
+                        f"{time.perf_counter() - t0:.2f} s; " + printed[what, where].splitlines()[0])
+            printed[what, where] = printed[what, where].replace(files[what, where], "OUT")
+        if what == "cpi":
+            cli_launches = CT.mt_traverse.launches
+            if cli_launches == 0:
+                raise AssertionError("phase r: the CLI's clustered CPI never launched the traversal kernel")
+    worst = {}
+    for what, tol in (("cpi", 1e-6), ("run", 1e-9)):
+        if printed[what, "cuda"] != printed[what, "cpu"]:
+            raise AssertionError(f"phase r {what}: the card printed {printed[what, 'cuda']!r}, the CPU "
+                                 f"{printed[what, 'cpu']!r}")
+        a, b = load_responses(files[what, "cuda"]), load_responses(files[what, "cpu"])
+        oa = np.lexsort((a["delay"], a["time"], a["rx_index"]))
+        ob = np.lexsort((b["delay"], b["time"], b["rx_index"]))
+        if not np.array_equal(a["rx_index"][oa], b["rx_index"][ob]) or a["power"].size == 0:
+            raise AssertionError(f"phase r {what}: the receivers' responses differ in number")
+        def rel(k, floor):
+            d = np.abs(a[k][oa] - b[k][ob])
+            if k == "phase":  # wrapped, relative to max(|phase|, 1 rad): phase m's rule
+                d = np.minimum(d % (2 * np.pi), 2 * np.pi - d % (2 * np.pi))
+            return float((d / np.maximum(np.abs(b[k][ob]), floor)).max())
+
+        worst[what] = {k: rel(k, 1.0 if k == "phase" else 1e-300) for k in ("power", "delay", "doppler", "phase")}
+        if max(worst[what]["power"], worst[what]["phase"]) > tol or (what == "run" and max(worst[what].values()) > tol):
+            raise AssertionError(f"phase r {what}: card against CPU {worst[what]} (over {tol})")
+    # the saved file read back against the in-memory responses of the same run
+    world, wparams = load_world(scene)
+    run_all_cpi(world, wparams, device=dev, accel="cluster", refine=True)
+    back = load_responses(files["cpi", "cuda"])
+    mem = [(i, p) for i, rx in enumerate(world.receivers) for r in rx.responses for p in r.points]
+    for k in ("power", "time", "delay", "doppler", "phase"):
+        if not np.array_equal(back[k], np.array([getattr(p, k) for _, p in mem])):
+            raise AssertionError(f"phase r: the saved {k} differs from the in-memory responses")
+    if not np.array_equal(back["rx_index"], np.array([i for i, _ in mem])):
+        raise AssertionError("phase r: the saved receivers differ from the in-memory responses")
+    info = run_cli("info", scene)
+    names = [rx.name for rx in world.receivers] + [t.name for t in world.targets]
+    if not all(name in info for name in names) or "transmitters (1)" not in info:
+        raise AssertionError(f"phase r: info printed {info!r}")
+    stamp(card, f"phase r CLI on examples/scene.xml: {printed['cpi', 'cuda'].splitlines()[0]} on both; "
+                f"--cpi --accel cluster --refine ({cli_launches} K1 launches) card against CPU: power "
+                f"{worst['cpi']['power']:.3e}, phase {worst['cpi']['phase']:.3e} rad; the f64 driver: power "
+                f"{worst['run']['power']:.3e}, delay {worst['run']['delay']:.3e}, Doppler "
+                f"{worst['run']['doppler']:.3e}, phase {worst['run']['phase']:.3e}; the .npz equals the "
+                f"in-memory responses; info lists {len(names)} receivers and targets")
+    stamp(card, f"phases p, q, r: {t_q - t_p:.1f} s, {t_r - t_q:.1f} s, {time.perf_counter() - t_r:.1f} s")
+    return dict(launches=launches, cli_launches=cli_launches, call=k1, render_ms=render_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1443,16 +1876,20 @@ def main() -> int:
     del base, batch, mbase, mbatch
     brute_phases(card, dev, params)
     diel = dielectric_phases(card, dev)
+    img = render_phases(card, dev)
     k2_calls = [k2m, k2, k8]
+    k1_paths = {"terrain": launches, "dielectric": diel["launches"], "config 5": img["launches"],
+                "cli": img["cli_launches"]}
     kernels = [
-        # the terrain segment 1 (phase 2); its launches are the terrain's
-        # and the dielectric main paths', with the dielectric segment-2 and
-        # segment-3 calls beside it
-        {**entry("mt_traverse K1 (candidate windows)", "249", launches + diel["launches"], k1),
-         "launches_by_path": {"terrain": launches, "dielectric": diel["launches"]},
+        # the terrain segment 1 (phase 2); its launches are those of the
+        # terrain, dielectric and config-5 main paths and the CLI's, with
+        # the dielectric segment-2 and segment-3 calls and config 5's
+        # segment 1 (ray_tile 128) beside it
+        {**entry("mt_traverse K1 (candidate windows)", "249", sum(k1_paths.values()), k1),
+         "launches_by_path": k1_paths,
          "calls": [{k: r[k] for k in ("what", "err", "ms", "plain_ms", "pairs", "bound_ms", "bound_by",
                                       "tiles", "swept_tiles", "live_lanes")}
-                   | {"ps_per_pair": 1e9 * r["ms"] / r["pairs"]} for r in diel["calls"]]},
+                   | {"ps_per_pair": 1e9 * r["ms"] / r["pairs"]} for r in diel["calls"] + [img["call"]]]},
         # the sweep's main-path call: the moving segment's swept tiles; its
         # launches are the moving CPI's calls that swept a tile (the
         # dielectric path's beside them)

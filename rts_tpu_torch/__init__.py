@@ -15,8 +15,12 @@ never imports).  Module names mirror ``rts_tpu`` one to one:
                     version beside it.
   * ``physics``   — receiver geometry, antennas, RCS, post-processing.
   * ``aggregate`` — multipath coherent combining (stable sort + segment sums).
-  * ``sim``       — World / Transmitter / Receiver / Target, ``prepare_cpi``
-                    and the sequential driver ``run``.
+  * ``sim``       — World / Transmitter / Receiver / Target, ``prepare_cpi``,
+                    the sequential driver ``run``, range-Doppler rendering,
+                    scene files, export and sweeps.
+  * ``utils``     — phase timing, scene validation.
+
+``python -m rts_tpu_torch run|info scene.xml`` is the command line.
 
 Tensors live on the device given to ``sim.prepare_cpi(..., device=...)``
 or ``sim.run(..., device=...)``, the card (``"cuda"``) unless the caller

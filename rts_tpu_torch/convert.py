@@ -14,8 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from rts_tpu_torch.aggregate import LaneAggregate
 from rts_tpu_torch.engine.animate import SceneBase
-from rts_tpu_torch.engine.cpi import CpiSpec, PulseBatch, RefineExtras
+from rts_tpu_torch.engine.cpi import CpiResult, CpiSpec, PulseBatch, RefineExtras
 from rts_tpu_torch.engine.types import DeviceScene, RxGeomDevice, TraceConfig
 from rts_tpu_torch.physics import antenna, rcs
 from rts_tpu_torch.sim.paths import RotationPath
@@ -107,3 +108,19 @@ def cpi_spec(jspec) -> CpiSpec:
         cspeed=kw["cspeed"],
         num_rx=kw["num_rx"],
     )
+
+
+def lane_aggregate(jagg, device="cuda") -> LaneAggregate:
+    """rts_tpu.aggregate.LaneAggregate, field for field (a missing
+    ``phase_lo`` becomes zeros, as the port's aggregation writes them)."""
+    fields = {f: getattr(jagg, f) for f in LaneAggregate._fields}
+    if fields["phase_lo"] is None:
+        fields["phase_lo"] = np.zeros_like(np.asarray(fields["phase"]))
+    return LaneAggregate(**{f: tensor(a, device) for f, a in fields.items()})
+
+
+def cpi_result(jout, device="cuda") -> CpiResult:
+    """rts_tpu.engine.cpi.CpiResult (a traced CPI), field for field: feeds
+    one trace to both packages' renders."""
+    return CpiResult(*(lane_aggregate(jout.agg, device) if f == "agg" else tensor(getattr(jout, f), device)
+                       for f in CpiResult._fields))

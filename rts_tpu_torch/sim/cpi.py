@@ -22,7 +22,7 @@ from rts_tpu_torch.core.rotation import rot_axis_reversed, rot_z
 from rts_tpu_torch.engine.cpi import CpiResult, CpiSpec, PulseBatch, RefineExtras, trace_cpi
 from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
 from rts_tpu_torch.geometry.scene import compile_scene
-from rts_tpu_torch.physics.receiver_geom import rx_sphere_geometry
+from rts_tpu_torch.physics.receiver_geom import rx_sphere_geometry, rx_sphere_geometry_device
 from rts_tpu_torch.sim.response import InterpPoint, Response
 from rts_tpu_torch.sim.waveform import TransmitterPulse
 from rts_tpu_torch.sim.world import World
@@ -79,11 +79,6 @@ _PREPARE_DEFAULTS = dict(
     rcs_angles=None,
 )
 
-# options whose non-default values select work that is not ported yet
-_NOT_PORTED = {
-    "rx_geom_on_device": (False, "on-device receiver geometry (ROADMAP A.8)"),
-}
-
 
 def prepare_cpi(
     world: World,
@@ -106,8 +101,9 @@ def prepare_cpi(
     traversal kernel's type.  ``device`` is where every tensor is
     created: the card unless the caller asks for another (there is no
     fallback; the CPU runs the traversal's plain version).
-    Configurations the port cannot run yet raise ``NotImplementedError``
-    naming the ROADMAP item: on-device receiver geometry (A.8).
+    ``rx_geom_on_device=True`` evaluates the [P, NR] receiver geometry on
+    ``device`` in ``dtype`` (``rx_sphere_geometry_device``) instead of in
+    host NumPy; it refuses ``refine=True``, as ``rts_tpu`` does.
 
     ``refine=True`` (the production preset) also builds the float64 state
     of the precision replay: f64 copies of the base corners, normals and
@@ -123,11 +119,11 @@ def prepare_cpi(
     if unknown:
         raise TypeError(f"prepare_cpi() got unexpected options {sorted(unknown)}")
     opts.update(options)
-    for name, (ok, what) in _NOT_PORTED.items():
-        if opts[name] != ok:
-            raise NotImplementedError(
-                f"{name}={opts[name]!r} needs {what}, not ported to rts_tpu_torch yet"
-            )
+    if opts["rx_geom_on_device"] and opts["refine"]:
+        raise ValueError(
+            "rx_geom_on_device=True is incompatible with refine=True: the replay "
+            "takes the f64 host receiver centres"
+        )
     accel = opts["accel"]
     if accel == "cluster" and dtype != torch.float32:
         raise ValueError("accel='cluster' traces in float32, the traversal kernel's type")
@@ -180,11 +176,17 @@ def prepare_cpi(
         )  # [P, NR, 3]
         rx_az = np.stack([np.broadcast_to(rx.GetRotation(times)[0], times.shape) for rx in world.receivers], axis=1)
         rx_el = np.stack([np.broadcast_to(rx.GetRotation(times)[1], times.shape) for rx in world.receivers], axis=1)
-        g = rx_sphere_geometry(
-            rx_pos.reshape(-1, 3), rx_az.reshape(-1), rx_el.reshape(-1),
-            np.tile(spheres[:, 0], pulse_count), np.tile(spheres[:, 1], pulse_count),
-            np.tile(spheres[:, 2], pulse_count), strict_parity=True,
-        )
+        if opts["rx_geom_on_device"]:
+            # one batched [P, NR] evaluation on the device
+            span = lambda k: np.tile(spheres[:, k], (pulse_count, 1))
+            g = rx_sphere_geometry_device(rx_pos, rx_az, rx_el, span(0), span(1), span(2),
+                                          dtype=dtype, device=device)
+        else:
+            g = rx_sphere_geometry(
+                rx_pos.reshape(-1, 3), rx_az.reshape(-1), rx_el.reshape(-1),
+                np.tile(spheres[:, 0], pulse_count), np.tile(spheres[:, 1], pulse_count),
+                np.tile(spheres[:, 2], pulse_count), strict_parity=True,
+            )
         geo = [g.centre.reshape(pulse_count, num_rx, 3)] + [
             getattr(g, f).reshape(pulse_count, num_rx)
             for f in ("radius", "min_theta", "max_theta", "min_phi", "max_phi")
@@ -193,7 +195,8 @@ def prepare_cpi(
         rx_pos = np.zeros((pulse_count, 0, 3))
         geo = [np.zeros((pulse_count, 0, 3))] + [np.zeros((pulse_count, 0))] * 5
 
-    t = lambda a: torch.as_tensor(np.array(a, np.float64), dtype=dtype, device=device)
+    t = lambda a: (a if torch.is_tensor(a) else
+                   torch.as_tensor(np.array(a, np.float64), dtype=dtype, device=device))
     extras = None
     if opts["refine"]:
         # per-pulse fan rotation r1 @ rz in f64 (engine/fan.py), vectorised

@@ -17,8 +17,10 @@ tracer is waveform-agnostic, rendering is where they matter):
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +64,12 @@ class RadarSignal:
         """Complex envelope at times ``rel`` since pulse start (0 outside).
 
         Analytic: rect(length) x exp(j*pi*chirp_rate*rel^2).  Stored:
-        linear interpolation of the sample array at rel*rate.
+        linear interpolation of the sample array at rel*rate.  A tensor
+        ``rel`` is evaluated in torch on its device (``xp`` unused); other
+        array-likes through ``xp``.
         """
+        if torch.is_tensor(rel):
+            return self._envelope_torch(rel)
         rel = xp.asarray(rel)
         if self.samples is None:
             env = ((rel >= 0.0) & (rel < self.length)).astype(xp.float32)
@@ -78,6 +84,24 @@ class RadarSignal:
         frac = (pos - i0c).astype(xp.float32)  # in [0, 1]; 1 at the last sample
         out = iq[i0c] * (1.0 - frac) + iq[i0c + 1] * frac
         return xp.where(inside, out, xp.asarray(0.0 + 0.0j, out.dtype))
+
+    def _envelope_torch(self, rel):
+        """``envelope`` on a tensor, with the types of the array path: a
+        float32 rect (complex64), the chirp in the complex type of the
+        times, complex64 stored samples."""
+        if self.samples is None:
+            env = ((rel >= 0.0) & (rel < self.length)).to(torch.float32)
+            if self.chirp_rate:
+                return env * torch.exp(1j * (math.pi * self.chirp_rate) * rel * rel)
+            return env.to(torch.complex64)
+        iq = torch.as_tensor(self.samples, device=rel.device)
+        n = iq.shape[0]
+        pos = rel * self.rate
+        inside = (pos >= 0) & (pos <= n - 1)
+        i0c = torch.clamp(torch.floor(pos), 0, n - 2).long()
+        frac = (pos - i0c).to(torch.float32)  # in [0, 1]; 1 at the last sample
+        out = iq[i0c] * (1.0 - frac) + iq[i0c + 1] * frac
+        return torch.where(inside, out, out.new_zeros(()))
 
     def GetCarrier(self):  # noqa: N802
         return self.carrier

@@ -55,7 +55,7 @@ def test_port_imports_every_module_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    assert int(out.stdout.strip()) >= 49
 
 
 def test_no_port_module_names_jax():
@@ -64,16 +64,31 @@ def test_no_port_module_names_jax():
     assert offenders == []
 
 
-def test_entry_points_default_to_the_card():
-    """prepare_cpi, run_cpi, scene_base, generate_fan_c and the convert
-    functions build on "cuda" unless the caller asks for another device."""
+def test_entry_points_default_to_the_card(monkeypatch):
+    """prepare_cpi, run_cpi, scene_base, generate_fan_c, the device
+    receiver geometry, the render's host-fed entry points, run_sweep and
+    the convert functions build on "cuda" unless the caller asks for
+    another device; so does the CLI."""
+    from rts_tpu_torch.__main__ import main
     from rts_tpu_torch.engine.animate import scene_base
     from rts_tpu_torch.engine.fan import generate_fan_c
+    from rts_tpu_torch.physics.receiver_geom import rx_sphere_geometry_device
+    from rts_tpu_torch.sim.render import responses_to_map, waveform_replica
+    from rts_tpu_torch.sim.sweep import run_sweep
 
     fns = [ts.prepare_cpi, ts.run_cpi, scene_base, generate_fan_c, convert.tensor, convert.f64,
-           convert.scene_base, convert.rx_geom, convert.refine_extras, convert.pulse_batch]
+           convert.scene_base, convert.rx_geom, convert.refine_extras, convert.pulse_batch,
+           convert.lane_aggregate, convert.cpi_result, rx_sphere_geometry_device, waveform_replica,
+           responses_to_map, run_sweep]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    seen = []
+    monkeypatch.setattr(ts, "run", lambda world, params, **kw: seen.append(kw["device"]))
+    monkeypatch.setattr(ts, "run_all_cpi", lambda world, params, **kw: seen.append(kw["device"]))
+    scene = str(REPO / "examples" / "scene.xml")
+    for argv in (["run", scene], ["run", scene, "--cpi"], ["run", scene, "--device", "cpu"]):
+        assert main(argv) == 0
+    assert seen == ["cuda", "cuda", "cpu"]
 
 
 def _meshes(geom, case):
@@ -188,10 +203,6 @@ def test_prepare_cpi_state_equal_and_convert(refine):
     "options",
     [
         dict(preset="production", rx_geom_on_device=True),
-        # refraction, the brute-force and parity engines and Morton fan
-        # tiling run; what they cannot run yet still refuses.  The ids date
-        # from when these options refused alone: each case is now its
-        # option combined with on-device receiver geometry (A.8)
         dict(preset="production", refraction=True, rx_geom_on_device=True),
         dict(accel="brute", refraction=True, rx_geom_on_device=True),
         dict(preset="parity", rx_geom_on_device=True),
@@ -200,11 +211,35 @@ def test_prepare_cpi_state_equal_and_convert(refine):
     ids=["rx_geom_on_device", "refraction", "brute", "strict_parity", "fan_order"],
 )
 def test_prepare_cpi_refuses_unported(options):
+    """On-device receiver geometry with each option, against rts_tpu.  The
+    name dates from when the port refused these: with the production
+    preset (refine=True) both packages refuse, with a ValueError; the
+    brute-force and parity engines prepare, and their batches equal
+    rts_tpu's (the geometry to a few float32 ulp: each library's trig)."""
     options = dict(options)
-    params = TParameters(num_rays=3, max_refl_depth=1,
-                         max_refr_depth=2 if options.pop("refraction", False) else 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        ts.prepare_cpi(make_world(ts, pulses=1), params, device=DEVICE, **options)
+    refraction = options.pop("refraction", False)
+    params = dict(num_rays=3, max_refl_depth=1, max_refr_depth=2 if refraction else 0)
+    if options.get("preset") == "production":
+        for S, P, kw in ((js, JParameters, dict(dtype=jnp.float32)), (ts, TParameters, dict(device=DEVICE))):
+            with pytest.raises(ValueError, match="rx_geom_on_device=True is incompatible with refine=True"):
+                S.prepare_cpi(make_world(S, pulses=1), P(**params), **kw, **options)
+        return
+    jbase, jbat, jcfg, _ = js.prepare_cpi(make_world(js), JParameters(**params), dtype=jnp.float32, **options)
+    tbase, tbat, tcfg, _ = ts.prepare_cpi(make_world(ts), TParameters(**params), device=DEVICE, **options)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.strict_parity == (options.get("preset") == "parity") and tcfg.accel == "brute"
+    for name, t in tbase._asdict().items():
+        if t is not None:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jbase, name)), err_msg=name)
+    for name, t in tbat._asdict().items():
+        if name == "rx_geom":
+            for g, tg in t._asdict().items():
+                assert tg.dtype == torch.float32, g
+                np.testing.assert_allclose(tg.numpy(), np.asarray(getattr(jbat.rx_geom, g)), rtol=2e-6,
+                                           atol=2e-6, err_msg=g)
+        elif name != "refine":
+            np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jbat, name)), err_msg=name)
+    assert tbat.refine is None
 
 
 def test_iso_models_match_rts_tpu():
@@ -229,9 +264,22 @@ def test_iso_models_match_rts_tpu():
     ids=lambda m: type(m).__name__,
 )
 def test_unported_models_raise(model):
-    x = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        if hasattr(model, "gain"):
-            model.gain(x, x, 0.0, 0.0, 0.03)
-        else:
-            model.rcs(x, x, 0.03)
+    """Each model with its default parameters against rts_tpu's on seeded
+    float64 angles, within 1e-10 of the peak.  The name dates from when
+    the port's models raised; tests/test_torch_physics.py holds them at
+    the scenes' parameters in both types."""
+    import rts_tpu.physics.antenna as j_antenna
+    import rts_tpu.physics.rcs as j_rcs
+
+    rng = np.random.default_rng(4)
+    a, b = rng.uniform(-2.0, 2.0, (2, 64))
+    jmod = j_antenna if hasattr(model, "gain") else j_rcs
+    ref = getattr(jmod, type(model).__name__)(**dataclasses.asdict(model))
+    if hasattr(model, "gain"):
+        got = model.gain(torch.as_tensor(a), torch.as_tensor(b), 0.1, -0.2, 0.03)
+        want = np.asarray(ref.gain(jnp.asarray(a), jnp.asarray(b), 0.1, -0.2, 0.03))
+    else:
+        got = model.rcs(torch.as_tensor(a), torch.as_tensor(b), 0.03)
+        want = np.asarray(ref.rcs(jnp.asarray(a), jnp.asarray(b), 0.03))
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-10 * np.abs(want).max()

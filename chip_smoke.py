@@ -15,7 +15,9 @@ parity preset on the sphere scene (config 1), held to the 1e-6 contract
 against the production preset, and the sequential driver on README.md's
 quick start; and the dielectric CPI with refraction (config 3,
 ``bench.py --scene dielectric``); the physics models, and the CLI on
-examples/scene.xml.  There is no CPU fallback: without a
+examples/scene.xml; the config-5 CPI split over a process mesh, the
+terrain CPI in ray blocks, the native host geometry, the NumPy oracle
+against the card, and the port's examples.  There is no CPU fallback: without a
 CUDA card it exits non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
@@ -134,7 +136,34 @@ Phases (each line stamped with the card's name and power limit):
      --cpi --accel cluster --refine on the card against --device cpu
      (power and phase within 1e-6), the default run (the f64 driver)
      within 1e-9 (phase m's rule), the same counts printed; the saved
-     .npz read back equal to a run's in-memory responses; info.
+     .npz read back equal to a run's in-memory responses; info;
+  s. phase p's config-5 CPI through the pulse x ray split
+     (parallel.trace_cpi_sharded on make_mesh(1, 1), a process group of
+     one NCCL rank): bit-identical to phase p's trace_cpi, as many K1
+     launches (768), its seconds per CPI beside trace_cpi's before it
+     (phase p's warm run) and after it;
+  t. phase 3's terrain CPI (config 4, 63^3, the production preset), 2
+     pulses, traced whole and in 3 and in 9 ray blocks (make_pulse_fn(
+     fan_slice=...)) put back by parallel.sharding.regather_lanes on the
+     card and aggregated: received lanes, path rows and emit identical to
+     the whole pulses, every lane of the same chain of triangles bit-equal
+     (power and phase included), a lane that parts doing so on an exact-t
+     tie (compare_pulse_ties), counted; K1 launches per block, and ms per
+     pulse of each split against the whole pulse in turns (whole, 3, 9, 9,
+     3, whole);
+  u. the native host geometry (rts_tpu_torch.native, built with g++): the
+     Morton permutation of the 999,698-triangle terrain equal with and
+     without the library (RTS_NO_NATIVE), both host times; load_triplets
+     equal to the NumPy parser on a mesh from write_mesh_files;
+  v. the card's f64 brute-force engine against the port's NumPy oracle
+     (rts_tpu_torch.oracle) on three scenes of
+     tests/test_engine_vs_oracle.py (the 27-ray sphere fan, the two-plate
+     double bounce, the dielectric slab with two receivers), with
+     assert_match's rules: discrete outputs equal, continuous ones within
+     rtol 1e-9;
+  w. the port's examples on the card (examples/torch_*.py, the terrain
+     one at 20,000 triangles, 8 pulses, 7^3 rays): each prints its
+     closing line.
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -150,7 +179,8 @@ kernel's picoseconds per pair it evaluated.
 The line before the card line is a JSON object with the kernel's modes,
 their launches in the main paths, errors, times and bounds (K1 with the
 dielectric segment-2 and segment-3 calls and config 5's segment 1, its
-launches by path; the sweep, K2, with each of its
+launches by path, the split config-5 CPI and the ray blocks among them;
+the sweep, K2, with each of its
 three calls: terrain-20k sweep-only, the terrain overflow, the moving
 swept tiles); the last line is the JSON result.
 """
@@ -206,6 +236,10 @@ IMAGING_KNOBS = dict(ray_tile=128, sub_tiles=2, candidates=32, replay_cap=64, ag
 IMAGING_ALT, IMAGING_PRF, IMAGING_FS = 4000.0, 2000.0, 50e6
 IMAGING_CHIRP, IMAGING_PULSE = 5e12, 4e-6  # LFM: 20 MHz over 4 us
 MODEL_DIRS = 1_000_000  # phase q: directions each physics model is held on
+SPLIT_PULSES = 2  # phase t: terrain pulses traced whole and in ray blocks
+RAY_BLOCKS = (3, 9)  # phase t: 63^3 = 3^6 x 7^3 divides into both
+ORACLE_RTOL = 1e-9  # phase v: assert_match's (tests/test_engine_vs_oracle.py:25)
+EXAMPLE_TRIS = 20_000  # phase w: torch_terrain_imaging.py's terrain
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
 # outside the tensor cores, and the HBM rate.
 FP32_PEAK = 67e12
@@ -1330,7 +1364,7 @@ def render_phases(card: str, dev) -> dict:
         profile_pulse(card, "config 5", lambda: agg(*one(*args0)))
     except Exception as exc:  # the profile measures; it gates nothing
         stamp(card, f"phase j config 5: the profiler failed: {exc!r}")
-    del out, state, res0, calls, inp
+    del res0, calls, inp  # out and state: phase s
     t_q = time.perf_counter()
 
     # ---- q. the physics models on the card against the CPU
@@ -1474,7 +1508,290 @@ def render_phases(card: str, dev) -> dict:
                 f"{worst['run']['doppler']:.3e}, phase {worst['run']['phase']:.3e}; the .npz equals the "
                 f"in-memory responses; info lists {len(names)} receivers and targets")
     stamp(card, f"phases p, q, r: {t_q - t_p:.1f} s, {t_r - t_q:.1f} s, {time.perf_counter() - t_r:.1f} s")
-    return dict(launches=launches, cli_launches=cli_launches, call=k1, render_ms=render_ms)
+    return dict(launches=launches, cli_launches=cli_launches, call=k1, render_ms=render_ms, state=state, out=out,
+                warm_s=warm_s)
+
+
+def split_phases(card: str, dev, img: dict) -> dict:
+    """Phases s-w: the pulse x ray split through trace_cpi_sharded at full
+    width (a world of one rank over NCCL) and its ray blocks' lane layout
+    and replay offsets with the kernel, the native host geometry, the
+    NumPy oracle against the card's f64 engine, and the port's examples.
+    ``img`` is render_phases' result: phase p's config-5 state and CPI.
+    Returns K1's launches in phases s and t."""
+    import contextlib
+    import io
+    import runpy
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from rts_tpu_torch import Parameters, native
+    from rts_tpu_torch.accel.cluster import morton_order
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args, trace_cpi
+    from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig, scene_to_device
+    from rts_tpu_torch.engine.wavefront import TraceResult, trace_pulse
+    from rts_tpu_torch.geometry import filemesh, sphere_mesh, terrain_mesh
+    from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.oracle import trace_pulse as oracle_pulse
+    from rts_tpu_torch.parallel import make_mesh, regather_lanes, trace_cpi_sharded
+    from rts_tpu_torch.sim import prepare_cpi
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "build")
+    os.makedirs(build, exist_ok=True)
+
+    # ---- s. the split through trace_cpi_sharded on phase p's config-5 CPI
+    t_s = time.perf_counter()
+    state, out = img["state"], img["out"]
+    init = os.path.join(build, f"chip_smoke_pg_{os.getpid()}")
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        reset_counts(dev)
+        sync()
+        t0 = time.perf_counter()
+        split = trace_cpi_sharded(*state, mesh)
+        sync()
+        split_s = time.perf_counter() - t0
+        s_launches = CT.mt_traverse.launches
+        backend = dist.get_backend(mesh.get_group("ray"))
+        t0 = time.perf_counter()  # trace_cpi again after the split: phase p, split, phase p
+        trace_cpi(*state)
+        sync()
+        after_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(init):
+            os.unlink(init)
+    if not same_result(split, out):
+        raise AssertionError("phase s: trace_cpi_sharded differs from phase p's trace_cpi")
+    if s_launches != img["launches"]:
+        raise AssertionError(f"phase s: {s_launches} K1 launches, phase p had {img['launches']}")
+    stamp(card, f"phase s split config 5 (trace_cpi_sharded, make_mesh(1, 1), one {backend} rank): "
+                f"{IMAGING_PULSES} pulses x {IMAGING_RAYS}^3 rays bit-identical to phase p's trace_cpi; "
+                f"{split_s:.3f} s per CPI ({1e3 * split_s / IMAGING_PULSES:.1f} ms/pulse) against trace_cpi's "
+                f"{img['warm_s']:.3f} s before it (phase p's warm run) and {after_s:.3f} s after it; "
+                f"{s_launches} K1 launches")
+    del split, state, out, img["state"], img["out"]
+    t_t = time.perf_counter()
+
+    # ---- t. the ray split's lane layout and replay offsets, with the kernel
+    params = Parameters(num_rays=NUM_RAYS, max_refl_depth=2)
+    base, batch, cfg, spec = prepare_cpi(terrain_world(SPLIT_PULSES, TRIS), params, preset="production",
+                                         device=dev)
+    n3 = cfg.rays_per_fan
+    one, aggregate = make_pulse_fn(base, cfg, spec)
+    split_fns = {k: [make_pulse_fn(base, cfg, spec, fan_slice=(k, i))[0] for i in range(k)] for k in RAY_BLOCKS}
+
+    def pulse_in_blocks(k: int, p: int, launches: list | None = None):
+        """Pulse p traced whole (k = 1) or in k ray blocks put back in the
+        whole fan's order on the card: (its TraceResult, its CpiResult)."""
+        if k == 1:
+            res, *rest = one(*pulse_args(batch, p))
+            return res, aggregate(res, *rest)
+        parts = []
+        for blk in split_fns[k]:
+            before = CT.mt_traverse.launches
+            parts.append(blk(*pulse_args(batch, p)))
+            if launches is not None:
+                launches.append(CT.mt_traverse.launches - before)
+        rg = lambda xs: regather_lanes(xs, cfg.slot_multiplier, n3 // k)
+        res = TraceResult(*(rg([part[0][j] for part in parts]) for j in range(len(TraceResult._fields))))
+        return res, aggregate(res, *(rg([part[j] for part in parts]) for j in (1, 2, 3)))
+
+    refs = [pulse_in_blocks(1, p) for p in range(SPLIT_PULSES)]
+    t_launches, t_rows = 0, {}
+    for k in RAY_BLOCKS:
+        if n3 % k:
+            raise AssertionError(f"phase t: {n3} rays do not divide into {k} blocks")
+        per_block, ties = [], 0
+        for p in range(SPLIT_PULSES):
+            res, got = pulse_in_blocks(k, p, per_block)
+            if any(x.device != base.tri_verts.device for x in (*res, *got[:4], *got.agg)):
+                raise AssertionError("phase t: a result left the card")
+            ref, ref_out = refs[p]
+            n_ties = compare_pulse_ties(res, ref, base.tri_verts, f"phase t {k} blocks pulse {p}",
+                                        "the unsplit pulse")
+            ties += n_ties
+            for name, a, b in (("received", got.received, ref_out.received), ("path rows", res.path, ref.path),
+                               ("emit", got.agg.emit, ref_out.agg.emit)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"phase t {k} blocks pulse {p}: {name} differs from the unsplit pulse")
+            if n_ties == 0 and not same_result(got, ref_out):
+                raise AssertionError(f"phase t {k} blocks pulse {p}: power, phase or an aggregate differs from "
+                                     "the unsplit pulse")
+            if n_ties:
+                same = (res.tri_seq == ref.tri_seq).all(0)
+                for name, a, b in (("power", got.power, ref_out.power), ("phase", got.agg.phase,
+                                                                         ref_out.agg.phase)):
+                    if not bit_equal(a[same], b[same]):
+                        raise AssertionError(f"phase t {k} blocks pulse {p}: {name} differs on a lane whose "
+                                             "chain is the unsplit pulse's")
+        if min(per_block) == 0:
+            raise AssertionError(f"phase t {k} blocks: a block never launched K1")
+        t_launches += sum(per_block)
+        t_rows[k] = dict(ties=ties, launches=per_block)
+    # ms per pulse of each split, in turns: whole, 3, 9, 9, 3, whole
+    turns = {k: [] for k in (1, *RAY_BLOCKS)}
+    for k in (1, *RAY_BLOCKS, *reversed(RAY_BLOCKS), 1):
+        sync()
+        t0 = time.perf_counter()
+        for p in range(SPLIT_PULSES):
+            pulse_in_blocks(k, p)
+        sync()
+        turns[k].append(1e3 * (time.perf_counter() - t0) / SPLIT_PULSES)
+    whole = min(turns[1])
+    for k in RAY_BLOCKS:
+        row = t_rows[k]
+        row["ms"] = turns[k]
+        stamp(card, f"phase t terrain (config 4, {int(base.tri_verts.shape[0])} triangles, {NUM_RAYS}^3 rays, "
+                    f"production preset, {SPLIT_PULSES} pulses) in {k} ray blocks of {n3 // k} rays: received "
+                    f"lanes, path rows and emit identical to the unsplit pulses, every lane of the same chain "
+                    f"bit-equal (power, phase and the rest), {row['ties']} lanes parted on an exact-t tie; K1 "
+                    f"launches per block {min(row['launches'])}-{max(row['launches'])} ({sum(row['launches'])} in "
+                    f"all); in turns {' / '.join(f'{x:.1f}' for x in turns[k])} ms per pulse against the whole "
+                    f"pulse's {' / '.join(f'{x:.1f}' for x in turns[1])} ({min(turns[k]) / whole:.2f}x, best "
+                    f"against best)")
+    del base, batch, refs, res, got, split_fns
+    t_u = time.perf_counter()
+
+    # ---- u. native host geometry on the card's machine
+    if not native.available():
+        raise AssertionError("phase u: the native library did not build (g++ is on this machine: nvcc needs it)")
+    n = max(2, round(math.sqrt(TRIS / 2)) + 1)
+    terrain = terrain_mesh(n, 12000.0, 300.0, seed=3)
+    soup = terrain.verts[terrain.tris]
+    t0 = time.perf_counter()
+    perm_native = morton_order(soup)
+    native_s = time.perf_counter() - t0
+    os.environ["RTS_NO_NATIVE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        perm_numpy = morton_order(soup)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        del os.environ["RTS_NO_NATIVE"]
+    if not np.array_equal(perm_native, perm_numpy):
+        raise AssertionError(f"phase u: the Morton permutations differ on {int((perm_native != perm_numpy).sum())} "
+                             "triangles")
+    ball, _ = sphere_mesh(4, 30.0)
+    v_file, n_file = os.path.join(build, "chip_smoke_v.txt"), os.path.join(build, "chip_smoke_n.txt")
+    filemesh.write_mesh_files(ball, v_file, n_file)
+    try:
+        loaded = native.load_triplets(v_file)
+        os.environ["RTS_NO_NATIVE"] = "1"
+        try:
+            parsed = filemesh._read_triplets(v_file)
+        finally:
+            del os.environ["RTS_NO_NATIVE"]
+    finally:
+        os.unlink(v_file)
+        os.unlink(n_file)
+    if not np.array_equal(loaded, parsed):
+        raise AssertionError("phase u: load_triplets differs from the NumPy parser")
+    stamp(card, f"phase u native host geometry (g++ build {native.build().name}): Morton permutation of the "
+                f"{soup.shape[0]}-triangle terrain equal with and without the library, {native_s:.3f} s native "
+                f"against {numpy_s:.3f} s NumPy (host); load_triplets equals _read_triplets on a "
+                f"{ball.tris.shape[0]}-triangle mesh from write_mesh_files")
+    del terrain, soup, perm_native, perm_numpy
+    t_v = time.perf_counter()
+
+    # ---- v. the NumPy oracle against the card's f64 brute-force engine
+    worst = {}
+    for name, (scn, vparams, tx_origin, tx_dir, tx_span, rx) in oracle_scenes().items():
+        o = oracle_pulse(scn, vparams, tx_origin, tx_dir, tx_span, rx, strict_parity=False)
+        e = trace_pulse(scene_to_device(scn, dtype=torch.float64, device=dev),
+                        RxGeomDevice.from_host(rx, dtype=torch.float64, device=dev),
+                        torch.as_tensor(np.asarray(tx_origin, np.float64), device=dev), tuple(tx_dir),
+                        tuple(tx_span), TraceConfig.from_parameters(vparams, strict_parity=False, tri_chunk=64))
+        if e.ray_length.device.type != dev.type:
+            raise AssertionError(f"phase v {name}: the engine ran on {e.ray_length.device}")
+        got = {f: getattr(e, f).cpu().numpy() for f in e._fields}
+        for f in ("received", "refl_depth", "refr_depth"):
+            if not np.array_equal(got[f], getattr(o, f)):
+                raise AssertionError(f"phase v {name}: {f} differs from the oracle")
+        if not np.array_equal(got["path"].T, o.path):
+            raise AssertionError(f"phase v {name}: path differs from the oracle")
+        pairs = [("ray_length", got["ray_length"], o.ray_length, 1e-9), ("power", got["power"], o.power, 1e-300),
+                 ("doppler", got["doppler"], o.doppler, 1e-9), ("first_hit", got["first_hit"].T, o.first_hit, 1e-9),
+                 ("prev_hit", got["prev_hit"].T, o.prev_hit, 1e-9),
+                 ("rcs", np.transpose(got["rcs"], (2, 1, 0)), o.rcs_angle, 1e-9)]
+        rel = 0.0
+        for f, a, b, atol in pairs:
+            over = np.abs(a - b) - (atol + ORACLE_RTOL * np.abs(b))
+            if (over > 0).any():
+                raise AssertionError(f"phase v {name}: {f} beyond rtol {ORACLE_RTOL} of the oracle")
+            big = np.abs(b) > atol
+            rel = max(rel, float((np.abs(a - b)[big] / np.abs(b)[big]).max()) if big.any() else 0.0)
+        worst[name] = (int((o.received >= 0).sum()), int(o.received.shape[0]), rel)
+    stamp(card, "phase v the f64 brute-force engine on the card against rts_tpu_torch.oracle (assert_match: "
+                f"discrete equal, continuous within rtol {ORACLE_RTOL}): "
+                + "; ".join(f"{k} {r} of {n_l} lanes received, largest relative difference {e:.3e}"
+                            for k, (r, n_l, e) in worst.items()))
+    t_w = time.perf_counter()
+
+    # ---- w. the port's examples on the card, at reduced sizes
+    closing = {"torch_from_xml.py": ([], "total responses:"),
+               "torch_monostatic_sphere.py": ([], "range-Doppler peak:"),
+               "torch_terrain_imaging.py": (["--tris", str(EXAMPLE_TRIS), "--pulses", "8", "--rays", "7"],
+                                            "strongest compressed return")}
+    argv, tmp = sys.argv, tempfile.tempdir
+    tempfile.tempdir = build  # the examples save their archives there
+    try:
+        for name, (args, last) in closing.items():
+            sys.argv = [name, *args, "--device", dev.type]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(os.path.join(root, "examples", name), run_name="__main__")
+            sync()
+            lines = [ln for ln in buf.getvalue().splitlines() if last in ln]
+            if not lines:
+                raise AssertionError(f"phase w {name}: no '{last}' line in {buf.getvalue()!r}")
+            stamp(card, f"phase w {name} {' '.join(args)}: {lines[-1].strip()} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        sys.argv, tempfile.tempdir = argv, tmp
+    stamp(card, f"phases s, t, u, v, w: {t_t - t_s:.1f} s, {t_u - t_t:.1f} s, {t_v - t_u:.1f} s, "
+                f"{t_w - t_v:.1f} s, {time.perf_counter() - t_w:.1f} s")
+    return dict(s_launches=s_launches, t_launches=t_launches)
+
+
+def oracle_scenes() -> dict:
+    """Phase v's scenes of tests/test_engine_vs_oracle.py, built with the
+    port: the 27-ray moving sphere fan, the two-plate double bounce, and
+    the dielectric slab with two receivers."""
+    import numpy as np
+
+    from rts_tpu_torch import Parameters
+    from rts_tpu_torch.geometry import rect_mesh, sphere_mesh
+    from rts_tpu_torch.geometry.scene import compile_scene
+    from rts_tpu_torch.physics import rx_sphere_geometry
+
+    def rx(pos, az, radius):
+        k = len(pos)
+        return rx_sphere_geometry(rx_pos=np.asarray(pos, float), rx_azimuth=np.asarray(az, float),
+                                  rx_elevation=np.zeros(k), sphere_radius=np.full(k, radius),
+                                  theta_span=np.ones(k), phi_span=np.ones(k))
+
+    z = [0.0, 0.0, 0.0]
+    ball, _ = sphere_mesh(2, 10.0)
+    m1 = rect_mesh(2.0, 120.0, 120.0, yaw=-np.pi / 4).translated([500.0, 0.0, 0.0])
+    m2 = rect_mesh(2.0, 120.0, 120.0, yaw=np.pi / 4).translated([500.0, 300.0, 0.0])
+    slab = rect_mesh(10.0, 300.0, 300.0).translated([500.0, 0.0, 0.0])
+    return {
+        "sphere fan": (compile_scene([ball.translated([800.0, 0.0, 0.0])], [1.0], [1.0],
+                                     [np.array([-150.0, 30.0, 5.0])]),
+                       Parameters(num_rays=3, max_refl_depth=2), z, [0.0, 0.0], [0.03, 0.03, 0.0],
+                       rx([z], [0.0], 15.0)),
+        "two plates": (compile_scene([m1, m2], [1.0, 0.7], [1.0, 1.0], [np.zeros(3), np.zeros(3)]),
+                       Parameters(num_rays=3, max_refl_depth=3), z, [0.0, 0.0], [0.02, 0.02, 0.0],
+                       rx([z], [0.0], 5.0)),
+        "dielectric slab": (compile_scene([slab], [0.5], [1.5], [np.array([0.0, 20.0, 0.0])]),
+                            Parameters(num_rays=2, max_refl_depth=2, max_refr_depth=2), z, [0.0, 0.0],
+                            [0.01, 0.01, 0.0], rx([z, [2000.0, 0.0, 0.0]], [0.0, np.pi], 8.0)),
+    }
 
 
 def main() -> int:
@@ -1877,9 +2194,11 @@ def main() -> int:
     brute_phases(card, dev, params)
     diel = dielectric_phases(card, dev)
     img = render_phases(card, dev)
+    split = split_phases(card, dev, img)
     k2_calls = [k2m, k2, k8]
     k1_paths = {"terrain": launches, "dielectric": diel["launches"], "config 5": img["launches"],
-                "cli": img["cli_launches"]}
+                "cli": img["cli_launches"], "split config 5": split["s_launches"],
+                "ray blocks": split["t_launches"]}
     kernels = [
         # the terrain segment 1 (phase 2); its launches are those of the
         # terrain, dielectric and config-5 main paths and the CLI's, with

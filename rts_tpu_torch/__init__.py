@@ -19,6 +19,10 @@ never imports).  Module names mirror ``rts_tpu`` one to one:
                     the sequential driver ``run``, range-Doppler rendering,
                     scene files, export and sweeps.
   * ``utils``     — phase timing, scene validation.
+  * ``parallel``  — the pulse x ray split of a CPI over a process mesh
+                    (``torch.distributed``).
+  * ``oracle``    — slow NumPy float64 reference tracer.
+  * ``native``    — C++ host geometry (g++, ctypes), with NumPy paths.
 
 ``python -m rts_tpu_torch run|info scene.xml`` is the command line.
 

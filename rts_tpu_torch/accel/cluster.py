@@ -15,16 +15,18 @@ shape for a vector machine, so the TPU design is a flat two-level scheme:
      AABB and only runs the Möller–Trumbore tile test where the test
      passes (rts_tpu_torch.ops.cluster_trace).
 
-The host half is the NumPy code of ``rts_tpu.accel.cluster`` carried over
-(the JAX package cannot be imported where there is no jax); its Morton
-order is the NumPy path, which ``rts_tpu`` documents as bit-identical to
-its native one.
+The host half is the code of ``rts_tpu.accel.cluster`` carried over (the
+JAX package cannot be imported where there is no jax); its Morton order
+takes the port's own C++ runtime (``rts_tpu_torch.native``) when it
+builds, and the NumPy path, bit-identical to it, otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from rts_tpu_torch import native
 
 
 def _expand_bits(v: np.ndarray) -> np.ndarray:
@@ -43,6 +45,7 @@ def morton_order(tri_verts: np.ndarray, tri_target: np.ndarray | None = None) ->
 
     ``tri_verts``: [T, 3, 3].  Degenerate all-zero triangles (padding)
     sort wherever their centroid lands — harmless, they can never be hit.
+    Uses the C++ runtime when built (bit-identical to the NumPy path).
 
     With ``tri_target``, triangles sort by (target id, Morton code) —
     TARGET-MAJOR.  Morton codes are computed on the BASE (unanimated)
@@ -53,18 +56,21 @@ def morton_order(tri_verts: np.ndarray, tri_target: np.ndarray | None = None) ->
     overlapped ~every supergroup, collapsing traversal into the scalar
     sweep).  Target-major keys keep clusters single-target (at most one
     straddling cluster per target boundary)."""
-    c = tri_verts.mean(axis=1)  # [T, 3]
-    lo = c.min(axis=0)
-    span = c.max(axis=0) - lo
-    span[span == 0] = 1.0
-    q = np.clip(((c - lo) / span) * 1023.0, 0, 1023).astype(np.uint64)
-    code = (_expand_bits(q[:, 0]) << np.uint64(2)) | (
-        _expand_bits(q[:, 1]) << np.uint64(1)
-    ) | _expand_bits(q[:, 2])
-    perm = np.argsort(code, kind="stable").astype(np.int64)
+    perm = native.morton_order(tri_verts)
+    if perm is None:
+        c = tri_verts.mean(axis=1)  # [T, 3]
+        lo = c.min(axis=0)
+        span = c.max(axis=0) - lo
+        span[span == 0] = 1.0
+        q = np.clip(((c - lo) / span) * 1023.0, 0, 1023).astype(np.uint64)
+        code = (_expand_bits(q[:, 0]) << np.uint64(2)) | (
+            _expand_bits(q[:, 1]) << np.uint64(1)
+        ) | _expand_bits(q[:, 2])
+        perm = np.argsort(code, kind="stable").astype(np.int64)
     if tri_target is not None and np.unique(tri_target).size > 1:
         # a STABLE sort by target of the Morton-ordered permutation IS
-        # the (target, morton) composite order
+        # the (target, morton) composite order — keeps the native fast
+        # path for the Morton leg
         perm = perm[np.argsort(tri_target[perm], kind="stable")]
     return perm
 

@@ -2,9 +2,9 @@
 
 Each pulse runs animate (into the clustered layout, or a ``DeviceScene``
 for the brute-force path) -> fan -> trace -> (replay) -> post-process ->
-aggregate on the device; the JAX package's ``map_pulses`` (``lax.map``)
-becomes a Python loop, and the per-pulse results are stacked on a
-leading pulse axis.
+aggregate on the device; ``map_pulses`` loops over the pulses in Python
+and stacks the per-pulse results on a leading pulse axis.  The pulse and
+ray axes are split across processes by ``rts_tpu_torch.parallel``.
 """
 
 from __future__ import annotations
@@ -76,11 +76,17 @@ class CpiSpec(NamedTuple):
     num_rx: int
 
 
-def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=None):
+def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=None, fan_slice=None):
     """Build the single-pulse (trace -> postprocess, aggregate) pair.
 
     ``traverse`` swaps the phase-2 traversal function (default: the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors)."""
+    kernel on CUDA tensors, the plain version on CPU tensors).
+    ``fan_slice=(n_blocks, index)`` traces only ray block ``index`` of the
+    fan cut into ``n_blocks`` contiguous blocks of F = N^3 / n_blocks
+    cells: ``one_pulse`` then returns ``slot_multiplier * F`` lanes, slot
+    by slot (``slot * F + f``), and the replay is told which fan cells
+    they are.  The blocks' lanes, put back in the whole fan's order by
+    ``parallel.sharding.regather_lanes``, are what ``aggregate`` takes."""
 
     def one_pulse(rot, pos, vel, rx_geom: RxGeomDevice, rx_pos, tx_origin, tx_dir, time_t,
                   refine: RefineExtras | None = None):
@@ -90,9 +96,16 @@ def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=Non
             scene = animate_scene(base, rot, pos, vel)
         fan = generate_fan_c(cfg.num_rays, (tx_dir[0], tx_dir[1]), spec.tx_span,
                              dtype=base.tri_verts.dtype, device=base.tri_verts.device)
+        block, offset = cfg.rays_per_fan, 0
+        if fan_slice is not None:
+            n_blocks, index = fan_slice
+            block = cfg.rays_per_fan // n_blocks
+            offset = index * block
+            fan = fan[:, offset:offset + block].contiguous()
         res = trace_fan(scene, rx_geom, tx_origin, fan, cfg, traverse=traverse)
         if cfg.refine:
-            res = replay_refine(base, res, cfg, refine, tx_span=spec.tx_span)
+            res = replay_refine(base, res, cfg, refine, tx_span=spec.tx_span, fan_block=block,
+                                fan_offset=offset)
 
         def post(sub: TraceResult):
             return postprocess(
@@ -146,10 +159,21 @@ def _stack(results):
     return torch.stack(results)
 
 
+def map_pulses(full, batch: PulseBatch):
+    """``full`` (one pulse's arguments -> its result) over every pulse of
+    ``batch``, stacked on a leading pulse axis.
+
+    A Python loop on both paths, where the JAX package vmaps the dense
+    path and ``lax.map``s the clustered one: a pulse makes host decisions
+    on its own data (how many lanes were received against the caps, how
+    many ray tiles are still live for the narrow late segments), and the
+    traversal kernel is a ``ctypes`` launch, so neither can be batched over
+    pulses by ``torch.func.vmap``.  Each pulse fills the card on its own
+    through the kernel's ray-tile grid."""
+    return _stack([full(*pulse_args(batch, p)) for p in range(batch.times.shape[0])])
+
+
 def trace_cpi(base: SceneBase, batch: PulseBatch, cfg: TraceConfig, spec: CpiSpec) -> CpiResult:
     """Trace a whole CPI, pulse by pulse, on the tensors' device."""
     one_pulse, aggregate = make_pulse_fn(base, cfg, spec)
-    out = []
-    for p in range(batch.times.shape[0]):
-        out.append(aggregate(*one_pulse(*pulse_args(batch, p))))
-    return _stack(out)
+    return map_pulses(lambda *args: aggregate(*one_pulse(*args)), batch)

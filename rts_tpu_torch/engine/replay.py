@@ -92,7 +92,7 @@ def _fan_dirs(num_rays: int, tx_span, fan_rot, bore, f_idx):
     return _rotate(fan_rot.expand(lanes, 3, 3), _unit(raw))
 
 
-def replay_refine(base, res, cfg, extras, *, tx_span):
+def replay_refine(base, res, cfg, extras, *, tx_span, fan_block: int | None = None, fan_offset: int = 0):
     """Re-evaluate ray_length/power/doppler along the recorded chains.
 
     ``base`` is a SceneBase built with its f64 fields (``scene_base(...,
@@ -100,6 +100,11 @@ def replay_refine(base, res, cfg, extras, *, tx_span):
     the pulse's row of ``engine.cpi.RefineExtras``.  Returns ``res`` with
     refined ray_length (+ ray_length_lo), power and doppler on received
     lanes; every other lane and every discrete field passes through.
+
+    ``res`` traced the ``fan_block`` fan cells from ``fan_offset`` on (a
+    ray block of a split fan; by default the whole fan, N^3 from 0): lane
+    ``l`` is slot ``l // fan_block`` of fan cell ``fan_offset + l %
+    fan_block``.
 
     With ``cfg.replay_cap`` smaller than the lane count, the first
     ``replay_cap`` received lanes (in lane order) are gathered to a block
@@ -109,14 +114,15 @@ def replay_refine(base, res, cfg, extras, *, tx_span):
     if extras is None or base.tri_verts_f64 is None:
         raise ValueError("refine=True needs the float64 replay state: build it with "
                          "sim.prepare_cpi(..., refine=True)")
+    fan_block = cfg.rays_per_fan if fan_block is None else fan_block
     total = res.ray_length.shape[0]
     cap = min(cfg.replay_cap, total) if cfg.replay_cap else total
     if cap >= total:
-        return _replay_core(base, res, cfg, extras, tx_span, lane_ids=None)
+        return _replay_core(base, res, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=None)
     idx = received_first_idx(res.received, cap)
     sub = type(res)(*(take_lanes(a, idx) for a in res))
     sub = sub._replace(received=take_lanes(res.received, idx, fill=-1))
-    out = _replay_core(base, sub, cfg, extras, tx_span, lane_ids=idx)
+    out = _replay_core(base, sub, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=idx)
     m = min(int((res.received >= 0).sum()), cap)  # filler slots past the count are dropped
     merged = {}
     for name in ("ray_length", "ray_length_lo", "power", "doppler"):
@@ -126,15 +132,14 @@ def replay_refine(base, res, cfg, extras, *, tx_span):
     return res._replace(**merged)
 
 
-def _replay_core(base, res, cfg, extras, tx_span, lane_ids):
+def _replay_core(base, res, cfg, extras, tx_span, fan_block, fan_offset, lane_ids):
     f64 = torch.float64
     dev = res.ray_length.device
     lanes = res.ray_length.shape[0]
     nt = base.target_refl.shape[0]
     lane = torch.arange(lanes, device=dev) if lane_ids is None else lane_ids.long()
-    n3 = cfg.rays_per_fan
-    slot = lane // n3  # 0 primary, 1 trapped, 2 exiting
-    f_idx = lane % n3  # a child keeps its primary's fan cell
+    slot = lane // fan_block  # 0 primary, 1 trapped, 2 exiting
+    f_idx = fan_offset + lane % fan_block  # a child keeps its primary's fan cell
 
     d_raw = _fan_dirs(cfg.num_rays, tx_span, extras.fan_rot, extras.bore, f_idx)
     direction = d_raw  # step 0's t is parametric in the unnormalised direction

@@ -11,11 +11,17 @@ from __future__ import annotations
 
 import numpy as np
 
+from rts_tpu_torch import native
 from rts_tpu_torch.core.rotation import vertex_rotation
 from rts_tpu_torch.geometry.mesh import Mesh
 
 
 def _read_triplets(path: str) -> np.ndarray:
+    vals = native.load_triplets(path)
+    if vals is not None:
+        if vals.shape[0] % 3 != 0:
+            raise ValueError(f"{path}: expected 9 values per line (3 vertices)")
+        return vals
     with open(path, "r") as fh:
         text = fh.read()
     vals = np.array(text.replace(",", " ").split(), dtype=np.float64)

@@ -17,7 +17,7 @@ quick start; and the dielectric CPI with refraction (config 3,
 ``bench.py --scene dielectric``); the physics models, and the CLI on
 examples/scene.xml; the config-5 CPI split over a process mesh, the
 terrain CPI in ray blocks, the native host geometry, the NumPy oracle
-against the card, and the port's examples.  There is no CPU fallback: without a
+against the card, the port's examples, its bench and its contract check.  There is no CPU fallback: without a
 CUDA card it exits non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
@@ -163,7 +163,19 @@ Phases (each line stamped with the card's name and power limit):
      rtol 1e-9;
   w. the port's examples on the card (examples/torch_*.py, the terrain
      one at 20,000 triangles, 8 pulses, 7^3 rays): each prints its
-     closing line.
+     closing line;
+  x. the port's bench (rts_tpu_torch.bench.main, in process; BENCH_RUNS):
+     --tiny; config 4 at full width (--scene terrain --pulses 8 --repeat 2
+     --no-cpi256 --stats: 999,698 triangles, 63^3); config 1 at bench.py's
+     full width (--scene sphere --pulses 2 --repeat 1 --no-cpi256:
+     1,310,720 triangles, 63^3, the shell knobs, K3 and the sweep on the
+     tiles that overflow): each run's printed lines and record, a finite
+     rays/s and received lanes, K1 and K3 launches, swept tiles and peak
+     device memory; the terrain's second trace_cpi bit-identical to its
+     first;
+  y. the port's contract check (rts_tpu_torch.contract.main) on the
+     card, plain and --refr: the production trace on the card against the
+     float64 brute-force engine on the host CPU; its record must be ok.
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -179,7 +191,9 @@ kernel's picoseconds per pair it evaluated.
 The line before the card line is a JSON object with the kernel's modes,
 their launches in the main paths, errors, times and bounds (K1 with the
 dielectric segment-2 and segment-3 calls and config 5's segment 1, its
-launches by path, the split config-5 CPI and the ray blocks among them;
+launches by path, the split config-5 CPI, the ray blocks and the bench's
+terrain among them; K3 with its launches by path, the moving CPI and the
+bench's sphere;
 the sweep, K2, with each of its
 three calls: terrain-20k sweep-only, the terrain overflow, the moving
 swept tiles); the last line is the JSON result.
@@ -240,6 +254,10 @@ SPLIT_PULSES = 2  # phase t: terrain pulses traced whole and in ray blocks
 RAY_BLOCKS = (3, 9)  # phase t: 63^3 = 3^6 x 7^3 divides into both
 ORACLE_RTOL = 1e-9  # phase v: assert_match's (tests/test_engine_vs_oracle.py:25)
 EXAMPLE_TRIS = 20_000  # phase w: torch_terrain_imaging.py's terrain
+# phase x: rts_tpu_torch.bench's runs, configs 4 and 1 at bench.py's full width
+BENCH_RUNS = (("tiny", ["--tiny"]),
+              ("terrain-1M", ["--scene", "terrain", "--pulses", "8", "--repeat", "2", "--no-cpi256", "--stats"]),
+              ("sphere-1.31M", ["--scene", "sphere", "--pulses", "2", "--repeat", "1", "--no-cpi256"]))
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
 # outside the tensor cores, and the HBM rate.
 FP32_PEAK = 67e12
@@ -1758,6 +1776,77 @@ def split_phases(card: str, dev, img: dict) -> dict:
     return dict(s_launches=s_launches, t_launches=t_launches)
 
 
+def quiet(fn, *args):
+    """fn(*args) with what it prints (stdout and stderr) kept: (its
+    result, the lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        result = fn(*args)
+    return result, buf.getvalue().splitlines()
+
+
+def bench_phases(card: str, dev) -> dict:
+    """Phases x and y: the port's bench (rts_tpu_torch.bench.main) and its
+    contract check (rts_tpu_torch.contract.main) in process, each run's
+    printed lines stamped.  Returns the bench's K1 launches on the
+    terrain, and its K3 launches and swept tiles on the sphere."""
+    from rts_tpu_torch import bench, contract
+    from rts_tpu_torch.ops import cluster_trace as CT
+
+    t_x = time.perf_counter()
+    # ---- x. the bench: --tiny, and configs 4 and 1 at full width
+    launches = {}
+    for what, argv in BENCH_RUNS:
+        traces, trace = [], bench.trace_cpi
+        bench.trace_cpi = lambda *state: traces.append(trace(*state)) or traces[-1]
+        reset_counts(dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            record, lines = quiet(bench.main, [*argv, "--device", dev.type])
+        finally:
+            bench.trace_cpi = trace
+        sync()
+        seconds = time.perf_counter() - t0
+        k3 = CT.mt_traverse.mode_launches["K3"]
+        k1 = CT.mt_traverse.launches - k3 - CT.mt_traverse.mode_launches["K5"] - CT.mt_traverse.mode_launches["K6"]
+        sweeps, swept = sweep_counts()
+        launches[what] = dict(K1=k1, K3=k3, sweeps=sweeps, swept=swept)
+        received = int((traces[-1].received >= 0).sum())
+        for line in lines:
+            stamp(card, f"phase x {what}: {line}")
+        if not math.isfinite(record["value"]) or received == 0:
+            raise AssertionError(f"phase x {what}: value {record['value']}, {received} lanes received")
+        if what == "terrain-1M":
+            if not same_result(traces[0], traces[1]):
+                raise AssertionError("phase x terrain-1M: a second trace_cpi differs from the first")
+            if k1 == 0 or k3:
+                raise AssertionError(f"phase x terrain-1M: {k1} K1 and {k3} K3 launches")
+        if what == "sphere-1.31M" and k3 == 0:
+            raise AssertionError("phase x sphere-1.31M: the prune (K3) never launched")
+        stamp(card, f"phase x {what}: {len(traces)} trace_cpi runs in {seconds:.1f} s (prepare_cpi "
+                    f"included), {received} lanes received in the last; launches K1 {k1}, K3 {k3}, "
+                    f"{sweeps} of them swept {swept} tiles; peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+                    + ("; the second run bit-identical to the first" if what == "terrain-1M" else ""))
+        del traces
+    t_y = time.perf_counter()
+    # ---- y. the 1e-6 contract: the production trace on the card, the
+    # f64 brute-force reference on the host CPU
+    for argv in ([], ["--refr"]):
+        record, lines = quiet(contract.main, [*argv, "--device", dev.type])
+        for line in lines:
+            stamp(card, f"phase y {' '.join(argv) or 'plain'}: {line}")
+        if not record["ok"]:
+            raise AssertionError(f"phase y {argv}: the 1e-6 contract fails: {record}")
+    stamp(card, f"phases x and y: {t_y - t_x:.1f} s, {time.perf_counter() - t_y:.1f} s")
+    return dict(k1_terrain=launches["terrain-1M"]["K1"], k3_sphere=launches["sphere-1.31M"]["K3"],
+                sphere_sweeps=launches["sphere-1.31M"]["sweeps"], sphere_swept=launches["sphere-1.31M"]["swept"])
+
+
 def oracle_scenes() -> dict:
     """Phase v's scenes of tests/test_engine_vs_oracle.py, built with the
     port: the 27-ray moving sphere fan, the two-plate double bounce, and
@@ -2195,10 +2284,12 @@ def main() -> int:
     diel = dielectric_phases(card, dev)
     img = render_phases(card, dev)
     split = split_phases(card, dev, img)
+    xy = bench_phases(card, dev)
     k2_calls = [k2m, k2, k8]
     k1_paths = {"terrain": launches, "dielectric": diel["launches"], "config 5": img["launches"],
                 "cli": img["cli_launches"], "split config 5": split["s_launches"],
-                "ray blocks": split["t_launches"]}
+                "ray blocks": split["t_launches"], "bench terrain": xy["k1_terrain"]}
+    k3_paths = {"moving": k3_launches, "bench sphere": xy["k3_sphere"]}
     kernels = [
         # the terrain segment 1 (phase 2); its launches are those of the
         # terrain, dielectric and config-5 main paths and the CLI's, with
@@ -2215,8 +2306,11 @@ def main() -> int:
         {**entry("mt_traverse K2 (sweep)", "568", k2_launches,
                  {**k2m, "err": max(r["err"] for r in k2_calls), "bound_pairs": k2m["pairs"]}),
          "swept_tiles": m_swept, "dielectric_sweep_calls": diel["sweeps"],
-         "dielectric_swept_tiles": diel["swept"], "calls": sweep_calls(card, k2_calls)},
-        entry("mt_traverse K3 (mt_prune)", "557", k3_launches, k3),
+         "dielectric_swept_tiles": diel["swept"], "bench_sphere_sweep_calls": xy["sphere_sweeps"],
+         "bench_sphere_swept_tiles": xy["sphere_swept"], "calls": sweep_calls(card, k2_calls)},
+        # the moving main path's and the bench sphere's (config 1 at 1.31M)
+        {**entry("mt_traverse K3 (mt_prune)", "557", sum(k3_paths.values()), k3),
+         "launches_by_path": k3_paths},
         entry("mt_traverse K4 (emit_shade)", "521", k4_launches, k4),
         entry(f"mt_traverse K5 (resident live pack, cap {RESIDENT_CAP})", "398", mode_runs["K5"], k5),
         entry("mt_traverse K6 (mt_union=False)", "710", mode_runs["K6"], k6),

@@ -1,0 +1,3 @@
+"""device_idle_pct.imaging: read by ``benchmark.readers.device_idle_pct``."""
+
+from benchmark.readers import device_idle_pct as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""host_ops_per_pulse.imaging: read by ``benchmark.readers.host_ops_per_pulse``."""
+
+from benchmark.readers import host_ops_per_pulse as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""launches_per_pulse.imaging: read by ``benchmark.readers.launches_per_pulse``."""
+
+from benchmark.readers import launches_per_pulse as read  # noqa: F401

@@ -494,11 +494,19 @@ def sweep_calls(card: str, calls) -> list:
 def reset_counts(dev) -> None:
     """Every launch count of the traversal kernel to 0."""
     from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.utils import timing
 
-    CT.mt_traverse.launches = 0
-    for mode in CT.mt_traverse.mode_launches:
-        CT.mt_traverse.mode_launches[mode] = 0
+    timing.reset()
     CT.mt_traverse.sweep_counts = torch.zeros(2, dtype=torch.int32, device=dev)
+
+
+def kernel_calls(mode=None) -> int:
+    """The traversal kernel's calls counted since the last reset (the
+    ``traverse.calls`` counters of ``rts_tpu_torch.utils.timing``): all of
+    them, or those of one mode ("K3" ... "K6")."""
+    from rts_tpu_torch.utils import timing
+
+    return timing.counters().get("traverse.calls" if mode is None else f"traverse.calls.{mode}", 0)
 
 
 def sweep_counts():
@@ -627,6 +635,12 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
+def annotation(e) -> bool:
+    """Whether a profiler event is a span of the program's (``rts.*``) or
+    another user annotation, not an operator, a kernel or a copy."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("rts.")
+
+
 def profile_pulse(card: str, what: str, pulse) -> None:
     """Phase j: torch.profiler over one warm call of ``pulse`` (one pulse of
     a main path): device time against the wall, the traversal kernel's
@@ -641,7 +655,9 @@ def profile_pulse(card: str, what: str, pulse) -> None:
         pulse()
         sync()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    # spans are left out: a user annotation also shows on the device's
+    # timeline, as an event as long as its region
+    events = [e for e in prof.key_averages() if device_us(e) > 0 and not annotation(e)]
     # device time is counted on the device's own events (kernels, copies);
     # an operator's self device time is the same time seen from the host
     on_device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -658,7 +674,8 @@ def profile_pulse(card: str, what: str, pulse) -> None:
     for e in sorted(ops, key=device_us, reverse=True)[:5]:
         stamp(card, f"phase j {what}:   {device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     # the host's side: operators issued and the five largest by their own host time
-    host = [e for e in prof.key_averages() if getattr(e, "device_type", None) != DeviceType.CUDA]
+    host = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) != DeviceType.CUDA and not annotation(e)]
     aten = sum(e.count for e in host if e.key.startswith("aten::"))
     stamp(card, f"phase j {what}: {aten} aten operators issued, {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} "
                 f"ms of host time under the profiler; the largest by their own host time:")
@@ -676,7 +693,8 @@ def device_launches(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    on_device = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    on_device = [e for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA and not annotation(e)]
     if not on_device:
         return None, None
     return sum(e.count for e in on_device), sum(device_us(e) for e in on_device) / 1e3
@@ -737,11 +755,11 @@ def contract(card: str, dev, what: str, f64_base, f64_pulses, prod_state, phase:
     triangles first differ; printed); on the other received lanes, power,
     aggregated power and phase within 1e-6."""
     from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
-    from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.utils import timing
 
     to_brute = brute_index(prod_state[0], f64_base).to(dev)
     n3 = prod_state[2].rays_per_fan
-    CT.mt_traverse.launches = 0
+    timing.reset()
     worst = dict(power=0.0, agg_power=0.0, phase=0.0)
     compared = ties = parted = 0
     for p, (res64, pw64, out64, hits) in enumerate(f64_pulses):
@@ -782,12 +800,12 @@ def contract(card: str, dev, what: str, f64_base, f64_pulses, prod_state, phase:
         ph = torch.minimum(ph, 2 * math.pi - ph)[ok]
         worst["phase"] = max(worst["phase"], float(ph.max()) if ph.numel() else 0.0)
         compared += int(ok.sum())
-    if CT.mt_traverse.launches == 0:
+    if kernel_calls() == 0:
         raise AssertionError(f"phase {phase} {what}: the production side never launched the traversal kernel")
     if compared == 0:
         raise AssertionError(f"phase {phase} {what}: no received lane to compare")
     stamp(card, f"phase {phase} {what}: {len(f64_pulses)} pulse(s), production preset (f32 kernel, "
-                f"{CT.mt_traverse.launches} launches, + f64 replay) against the card's f64 brute-force "
+                f"{kernel_calls()} launches, + f64 replay) against the card's f64 brute-force "
                 f"engine: decisions identical but for {ties} printed edge-tie lanes (on {parted} more lanes "
                 f"the two chains hit other triangles, to the same decisions); on {compared} received "
                 f"lanes the largest error is power {worst['power']:.3e}, aggregated power "
@@ -848,7 +866,7 @@ def dielectric_phases(card: str, dev) -> dict:
         out = trace_cpi(*state)
         sync()
         first_s = time.perf_counter() - t0
-        launches = CT.mt_traverse.launches
+        launches = kernel_calls()
         sweeps, swept = sweep_counts()
         check_replay_overflow(out, cfg)
     received = int((out.received >= 0).sum())
@@ -1287,7 +1305,7 @@ def render_phases(card: str, dev) -> dict:
                           attach_responses=False, **knobs)
             sync()
             run_s = time.perf_counter() - t0
-        launches, (sweeps, swept) = CT.mt_traverse.launches, sweep_counts()
+        launches, (sweeps, swept) = kernel_calls(), sweep_counts()
         trace_peak = (torch.cuda.max_memory_allocated(dev) - held0) / 1e9
         per_pulse = (out.received >= 0).sum(1)
         most = int(per_pulse.max())
@@ -1483,7 +1501,7 @@ def render_phases(card: str, dev) -> dict:
                         f"{time.perf_counter() - t0:.2f} s; " + printed[what, where].splitlines()[0])
             printed[what, where] = printed[what, where].replace(files[what, where], "OUT")
         if what == "cpi":
-            cli_launches = CT.mt_traverse.launches
+            cli_launches = kernel_calls()
             if cli_launches == 0:
                 raise AssertionError("phase r: the CLI's clustered CPI never launched the traversal kernel")
     worst = {}
@@ -1551,7 +1569,6 @@ def split_phases(card: str, dev, img: dict) -> dict:
     from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig, scene_to_device
     from rts_tpu_torch.engine.wavefront import TraceResult, trace_pulse
     from rts_tpu_torch.geometry import filemesh, sphere_mesh, terrain_mesh
-    from rts_tpu_torch.ops import cluster_trace as CT
     from rts_tpu_torch.oracle import trace_pulse as oracle_pulse
     from rts_tpu_torch.parallel import make_mesh, regather_lanes, trace_cpi_sharded
     from rts_tpu_torch.sim import prepare_cpi
@@ -1573,7 +1590,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
         split = trace_cpi_sharded(*state, mesh)
         sync()
         split_s = time.perf_counter() - t0
-        s_launches = CT.mt_traverse.launches
+        s_launches = kernel_calls()
         backend = dist.get_backend(mesh.get_group("ray"))
         t0 = time.perf_counter()  # trace_cpi again after the split: phase p, split, phase p
         trace_cpi(*state)
@@ -1611,10 +1628,10 @@ def split_phases(card: str, dev, img: dict) -> dict:
             return res, aggregate(res, *rest)
         parts = []
         for blk in split_fns[k]:
-            before = CT.mt_traverse.launches
+            before = kernel_calls()
             parts.append(blk(*pulse_args(batch, p)))
             if launches is not None:
-                launches.append(CT.mt_traverse.launches - before)
+                launches.append(kernel_calls() - before)
         rg = lambda xs: regather_lanes(xs, cfg.slot_multiplier, n3 // k)
         res = TraceResult(*(rg([part[0][j] for part in parts]) for j in range(len(TraceResult._fields))))
         return res, aggregate(res, *(rg([part[j] for part in parts]) for j in (1, 2, 3)))
@@ -1794,7 +1811,6 @@ def bench_phases(card: str, dev) -> dict:
     printed lines stamped.  Returns the bench's K1 launches on the
     terrain, and its K3 launches and swept tiles on the sphere."""
     from rts_tpu_torch import bench, contract
-    from rts_tpu_torch.ops import cluster_trace as CT
 
     t_x = time.perf_counter()
     # ---- x. the bench: --tiny, and configs 4 and 1 at full width
@@ -1811,8 +1827,8 @@ def bench_phases(card: str, dev) -> dict:
             bench.trace_cpi = trace
         sync()
         seconds = time.perf_counter() - t0
-        k3 = CT.mt_traverse.mode_launches["K3"]
-        k1 = CT.mt_traverse.launches - k3 - CT.mt_traverse.mode_launches["K5"] - CT.mt_traverse.mode_launches["K6"]
+        k3 = kernel_calls("K3")
+        k1 = kernel_calls() - k3 - kernel_calls("K5") - kernel_calls("K6")
         sweeps, swept = sweep_counts()
         launches[what] = dict(K1=k1, K3=k3, sweeps=sweeps, swept=swept)
         received = int((traces[-1].received >= 0).sum())
@@ -2010,7 +2026,7 @@ def main() -> int:
     out = trace_cpi(base, batch, cfg, spec)
     sync()
     first_s = time.perf_counter() - t0
-    launches = CT.mt_traverse.launches
+    launches = kernel_calls()
     t_sweeps, t_swept = sweep_counts()
     received = int((out.received >= 0).sum())
     if launches == 0:
@@ -2100,8 +2116,8 @@ def main() -> int:
         mout = trace_cpi(mbase, mbatch, mcfg, mspec)
         sync()
         first_s = time.perf_counter() - t0
-        k3_launches = CT.mt_traverse.mode_launches["K3"]
-        m_launches = CT.mt_traverse.launches
+        k3_launches = kernel_calls("K3")
+        m_launches = kernel_calls()
         k2_launches, m_swept = sweep_counts()
         counts = check_replay_overflow(mout, mcfg)
     m_received = int((mout.received >= 0).sum())
@@ -2140,7 +2156,7 @@ def main() -> int:
     res_s = one_s(*args0)
     out_s = agg_s(*res_s)
     sync()
-    k4_launches = CT.mt_traverse.mode_launches["K4"]
+    k4_launches = kernel_calls("K4")
     one_g, agg_g = make_pulse_fn(mbase, mcfg, mspec)
     res_g = one_g(*args0)
     out_g = agg_g(*res_g)
@@ -2247,7 +2263,7 @@ def main() -> int:
         first = trace_cpi(*state)
         sync()
         first_s = time.perf_counter() - t0
-        n_mode, n_all = CT.mt_traverse.mode_launches[mode], CT.mt_traverse.launches
+        n_mode, n_all = kernel_calls(mode), kernel_calls()
         if n_mode == 0:
             raise AssertionError(f"the terrain CPI with {option} never launched mode {mode}")
         if not same_result(first, out):

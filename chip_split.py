@@ -58,6 +58,7 @@ def _rank(rank: int, job: dict, init: str, stamp_line: str) -> None:
     from rts_tpu_torch.ops import cluster_trace as CT
     from rts_tpu_torch.parallel import make_mesh, trace_cpi_sharded
     from rts_tpu_torch.sim import prepare_cpi
+    from rts_tpu_torch.utils import timing
 
     cuda = job["device"] == "cuda"
     if cuda:
@@ -104,12 +105,12 @@ def _rank(rank: int, job: dict, init: str, stamp_line: str) -> None:
             (result, seconds from the first start to the last end, this
             rank's K1 launches)."""
             mesh = None if mesh_shape is None else meshes[mesh_shape]
-            CT.mt_traverse.launches = 0
+            timing.reset()
             sync()
             t0 = time.perf_counter()
             out = trace_cpi(*state) if mesh is None else trace_cpi_sharded(*state, mesh)
             sync()
-            return out, time.perf_counter() - t0, CT.mt_traverse.launches
+            return out, time.perf_counter() - t0, timing.counters().get("traverse.calls", 0)
 
         ref, _, _ = run(None)  # warm, and the reference each split is held to
         for shape in job["meshes"]:  # warm each mesh's communicators

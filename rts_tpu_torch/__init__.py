@@ -18,7 +18,7 @@ never imports).  Module names mirror ``rts_tpu`` one to one:
   * ``sim``       — World / Transmitter / Receiver / Target, ``prepare_cpi``,
                     the sequential driver ``run``, range-Doppler rendering,
                     scene files, export and sweeps.
-  * ``utils``     — phase timing, scene validation.
+  * ``utils``     — spans and counters, scene validation.
   * ``parallel``  — the pulse x ray split of a CPI over a process mesh
                     (``torch.distributed``).
   * ``oracle``    — slow NumPy float64 reference tracer.

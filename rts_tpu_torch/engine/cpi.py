@@ -21,6 +21,7 @@ from rts_tpu_torch.engine.replay import replay_refine
 from rts_tpu_torch.engine.types import RxGeomDevice, TraceConfig
 from rts_tpu_torch.engine.wavefront import TraceResult, trace_fan
 from rts_tpu_torch.physics.postprocess import postprocess
+from rts_tpu_torch.utils.timing import trace_annotation
 
 
 class CpiResult(NamedTuple):
@@ -90,30 +91,32 @@ def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=Non
 
     def one_pulse(rot, pos, vel, rx_geom: RxGeomDevice, rx_pos, tx_origin, tx_dir, time_t,
                   refine: RefineExtras | None = None):
-        if cfg.accel == "cluster":
-            scene = animate_packed(base, rot, pos, vel)
-        else:
-            scene = animate_scene(base, rot, pos, vel)
-        fan = generate_fan_c(cfg.num_rays, (tx_dir[0], tx_dir[1]), spec.tx_span,
-                             dtype=base.tri_verts.dtype, device=base.tri_verts.device)
-        block, offset = cfg.rays_per_fan, 0
-        if fan_slice is not None:
-            n_blocks, index = fan_slice
-            block = cfg.rays_per_fan // n_blocks
-            offset = index * block
-            fan = fan[:, offset:offset + block].contiguous()
+        with trace_annotation("rts.animate"):
+            if cfg.accel == "cluster":
+                scene = animate_packed(base, rot, pos, vel)
+            else:
+                scene = animate_scene(base, rot, pos, vel)
+            fan = generate_fan_c(cfg.num_rays, (tx_dir[0], tx_dir[1]), spec.tx_span,
+                                 dtype=base.tri_verts.dtype, device=base.tri_verts.device)
+            block, offset = cfg.rays_per_fan, 0
+            if fan_slice is not None:
+                n_blocks, index = fan_slice
+                block = cfg.rays_per_fan // n_blocks
+                offset = index * block
+                fan = fan[:, offset:offset + block].contiguous()
         res = trace_fan(scene, rx_geom, tx_origin, fan, cfg, traverse=traverse)
         if cfg.refine:
             res = replay_refine(base, res, cfg, refine, tx_span=spec.tx_span, fan_block=block,
                                 fan_offset=offset)
 
         def post(sub: TraceResult):
-            return postprocess(
-                sub, tx_origin=tx_origin, rx_positions=rx_pos, rcs_models=spec.rcs_models,
-                tx_gain=spec.tx_gain, rx_gains=spec.rx_gains, tx_rotation=(tx_dir[0], tx_dir[1]),
-                rx_rotation_fns=spec.rx_rotation_fns, time_t=time_t,
-                carrier=spec.carrier, cspeed=spec.cspeed,
-            )
+            with trace_annotation("rts.postprocess"):
+                return postprocess(
+                    sub, tx_origin=tx_origin, rx_positions=rx_pos, rcs_models=spec.rcs_models,
+                    tx_gain=spec.tx_gain, rx_gains=spec.rx_gains, tx_rotation=(tx_dir[0], tx_dir[1]),
+                    rx_rotation_fns=spec.rx_rotation_fns, time_t=time_t,
+                    carrier=spec.carrier, cspeed=spec.cspeed,
+                )
 
         total = res.received.shape[0]
         cap = min(cfg.agg_cap, total) if cfg.agg_cap else 0
@@ -135,11 +138,12 @@ def make_pulse_fn(base: SceneBase, cfg: TraceConfig, spec: CpiSpec, traverse=Non
         return res, power, doppler, delay
 
     def aggregate(res: TraceResult, power, doppler, delay) -> CpiResult:
-        agg = aggregate_lanes(
-            res.received, res.refl_depth, res.refr_depth, res.path, power,
-            res.ray_length, doppler, num_rx=spec.num_rx, cspeed=spec.cspeed,
-            carrier=spec.carrier, ray_length_lo=res.ray_length_lo if cfg.refine else None,
-        )
+        with trace_annotation("rts.aggregate"):
+            agg = aggregate_lanes(
+                res.received, res.refl_depth, res.refr_depth, res.path, power,
+                res.ray_length, doppler, num_rx=spec.num_rx, cspeed=spec.cspeed,
+                carrier=spec.carrier, ray_length_lo=res.ray_length_lo if cfg.refine else None,
+            )
         return CpiResult(power=power, doppler=doppler, delay=delay, received=res.received, agg=agg)
 
     return one_pulse, aggregate
@@ -169,11 +173,18 @@ def map_pulses(full, batch: PulseBatch):
     many ray tiles are still live for the narrow late segments), and the
     traversal kernel is a ``ctypes`` launch, so neither can be batched over
     pulses by ``torch.func.vmap``.  Each pulse fills the card on its own
-    through the kernel's ray-tile grid."""
-    return _stack([full(*pulse_args(batch, p)) for p in range(batch.times.shape[0])])
+    through the kernel's ray-tile grid.  Each pulse is an ``rts.pulse``
+    span."""
+    results = []
+    for p in range(batch.times.shape[0]):
+        with trace_annotation("rts.pulse"):
+            results.append(full(*pulse_args(batch, p)))
+    return _stack(results)
 
 
 def trace_cpi(base: SceneBase, batch: PulseBatch, cfg: TraceConfig, spec: CpiSpec) -> CpiResult:
-    """Trace a whole CPI, pulse by pulse, on the tensors' device."""
-    one_pulse, aggregate = make_pulse_fn(base, cfg, spec)
-    return map_pulses(lambda *args: aggregate(*one_pulse(*args)), batch)
+    """Trace a whole CPI, pulse by pulse, on the tensors' device (the
+    ``rts.cpi`` span)."""
+    with trace_annotation("rts.cpi"):
+        one_pulse, aggregate = make_pulse_fn(base, cfg, spec)
+        return map_pulses(lambda *args: aggregate(*one_pulse(*args)), batch)

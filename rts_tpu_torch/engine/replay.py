@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from rts_tpu_torch.engine.compact import received_first_idx, take_lanes
+from rts_tpu_torch.utils.timing import count, profiling, trace_annotation
 
 FOUR_PI = 4.0 * math.pi
 
@@ -110,26 +111,39 @@ def replay_refine(base, res, cfg, extras, *, tx_span, fan_block: int | None = No
     ``replay_cap`` received lanes (in lane order) are gathered to a block
     and only they are replayed; received lanes beyond the cap keep their
     f32 values (``sim.check_replay_overflow`` warns about them).
+
+    The call is the ``rts.replay`` span.  The counters ``replay.lanes``
+    (received lanes refined) and ``replay.unrefined`` (received lanes past
+    the cap) take the count the capped block reads on the host; without a
+    cap every lane is replayed, and the received ones are counted on the
+    device while a profiler records.
     """
     if extras is None or base.tri_verts_f64 is None:
         raise ValueError("refine=True needs the float64 replay state: build it with "
                          "sim.prepare_cpi(..., refine=True)")
-    fan_block = cfg.rays_per_fan if fan_block is None else fan_block
-    total = res.ray_length.shape[0]
-    cap = min(cfg.replay_cap, total) if cfg.replay_cap else total
-    if cap >= total:
-        return _replay_core(base, res, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=None)
-    idx = received_first_idx(res.received, cap)
-    sub = type(res)(*(take_lanes(a, idx) for a in res))
-    sub = sub._replace(received=take_lanes(res.received, idx, fill=-1))
-    out = _replay_core(base, sub, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=idx)
-    m = min(int((res.received >= 0).sum()), cap)  # filler slots past the count are dropped
-    merged = {}
-    for name in ("ray_length", "ray_length_lo", "power", "doppler"):
-        a = getattr(res, name).clone()
-        a[idx[:m]] = getattr(out, name)[:m]
-        merged[name] = a
-    return res._replace(**merged)
+    with trace_annotation("rts.replay"):
+        fan_block = cfg.rays_per_fan if fan_block is None else fan_block
+        total = res.ray_length.shape[0]
+        cap = min(cfg.replay_cap, total) if cfg.replay_cap else total
+        if cap >= total:
+            if profiling():
+                count("replay.lanes", (res.received >= 0).sum())
+            count("replay.unrefined", 0)
+            return _replay_core(base, res, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=None)
+        idx = received_first_idx(res.received, cap)
+        sub = type(res)(*(take_lanes(a, idx) for a in res))
+        sub = sub._replace(received=take_lanes(res.received, idx, fill=-1))
+        out = _replay_core(base, sub, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=idx)
+        received = int((res.received >= 0).sum())
+        m = min(received, cap)  # filler slots past the count are dropped
+        count("replay.lanes", m)
+        count("replay.unrefined", received - m)
+        merged = {}
+        for name in ("ray_length", "ray_length_lo", "power", "doppler"):
+            a = getattr(res, name).clone()
+            a[idx[:m]] = getattr(out, name)[:m]
+            merged[name] = a
+        return res._replace(**merged)
 
 
 def _replay_core(base, res, cfg, extras, tx_span, fan_block, fan_offset, lane_ids):

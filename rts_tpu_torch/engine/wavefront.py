@@ -27,6 +27,7 @@ read back from the device, and its ``fori_loop``s Python loops.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -40,6 +41,7 @@ from rts_tpu_torch.engine.fan import fan_tile_perm, generate_fan_c
 from rts_tpu_torch.engine.intersect import closest_hit_bruteforce
 from rts_tpu_torch.engine.types import DeviceScene, RxGeomDevice, TraceConfig
 from rts_tpu_torch.ops.cluster_trace import closest_hit_clustered
+from rts_tpu_torch.utils.timing import count, profiling, trace_annotation
 
 PI = math.pi
 
@@ -581,6 +583,24 @@ def _narrow_budget(cfg: TraceConfig, tiles_full: int) -> int:
     return -(-tiles_full // cfg.compact_narrow)
 
 
+def _live_tiles(active, tiles_full: int, rt: int):
+    """[tiles_full] bool: the full ray tiles that hold a live lane."""
+    return active[: tiles_full * rt].reshape(tiles_full, rt).any(1)
+
+
+@functools.cache
+def _live_counter_names(seg: int) -> tuple[str, str]:
+    return f"segment.live_lanes.{seg}", f"segment.live_tiles.{seg}"
+
+
+def _count_live_on_device(names, active, tiles_full: int, rt: int) -> None:
+    """Count a segment's live lanes and live full tiles where the host holds
+    neither: on the device, and only while a profiler records."""
+    if profiling():
+        count(names[0], active.sum())
+        count(names[1], _live_tiles(active, tiles_full, rt).sum())
+
+
 def _permute_lanes(state: LaneState, bufs: TraceBuffers, perm):
     """Every lane-indexed leaf at ``perm``; the buffers' lanes past the
     traced ones stay where they are."""
@@ -616,6 +636,13 @@ def trace_fan(
     membership is kept within a run, so a narrow segment equals the
     full-width trace; the two orders may break an exact t tie the other
     way (the traversal visits a tile's clusters in another order).
+
+    Each segment is an ``rts.segment`` span.  The counters
+    ``segment.live_lanes.<seg>`` and ``segment.live_tiles.<seg>`` take the
+    live lanes and live full ray tiles entering it (the spawn segment's
+    from the fan, a narrow segment's from the counts it reads on the host,
+    the others' on the device while a profiler records), and
+    ``segment.narrow`` the segments traced as their live tiles only.
     """
     dtype = scene[0].dtype  # tri_pack (ClusterScene) or tri_p0 (DeviceScene)
     dev = fan_dirs.device
@@ -687,35 +714,48 @@ def trace_fan(
     nt = _narrow_budget(cfg, tiles_full) if narrow else tiles_full
     lane_perm = None
     for seg in range(cfg.num_segments):
-        if seg < spawn_segments:
-            state, bufs = body(state, bufs, spawn=True)
-            continue
-        if seg == spawn_segments and cfg.compact_lanes and clustered:
-            lane_perm = torch.argsort(_lane_sort_key(state), stable=True)
-            state, bufs = _permute_lanes(state, bufs, lane_perm)
-        if nt >= tiles_full:
-            state, bufs = body(state, bufs, spawn=False)
-            continue
-        n_live = int(state.active.sum())
-        if n_live == 0:
-            continue  # every update is gated on active: a dead segment is a no-op
-        live_t = state.active[: tiles_full * rt].reshape(tiles_full, rt).any(1)
-        if int(live_t.sum()) > nt:
-            state, bufs = body(state, bufs, spawn=False)
-            continue
-        # live tiles first (stable, by tile index), then the partial tail
-        t_order = torch.argsort((~live_t).to(torch.int8), stable=True)[:nt]
-        rows = (t_order[:, None] * rt + torch.arange(rt, device=dev)).reshape(-1)
-        rows = torch.cat([rows, torch.arange(tiles_full * rt, lanes, device=dev)])
-        s_n, b_n = body(
-            LaneState(*(a[..., rows] for a in state)),
-            TraceBuffers(path=bufs.path[..., rows], rcs=bufs.rcs[..., rows]),
-            spawn=False,
-        )
-        for a, b in zip(state, s_n):
-            a[..., rows] = b
-        bufs.path[..., rows] = b_n.path
-        bufs.rcs[..., rows] = b_n.rcs
+        with trace_annotation("rts.segment"):
+            live_names = _live_counter_names(seg)
+            if seg == 0:  # the spawn segment holds the whole fan
+                count(live_names[0], n3)
+                count(live_names[1], min(tiles_full, -(-n3 // rt)))
+            if seg < spawn_segments:
+                if seg:
+                    _count_live_on_device(live_names, state.active, tiles_full, rt)
+                state, bufs = body(state, bufs, spawn=True)
+                continue
+            if seg == spawn_segments and cfg.compact_lanes and clustered:
+                lane_perm = torch.argsort(_lane_sort_key(state), stable=True)
+                state, bufs = _permute_lanes(state, bufs, lane_perm)
+            if nt >= tiles_full:
+                _count_live_on_device(live_names, state.active, tiles_full, rt)
+                state, bufs = body(state, bufs, spawn=False)
+                continue
+            n_live = int(state.active.sum())
+            count(live_names[0], n_live)
+            if n_live == 0:
+                count(live_names[1], 0)
+                continue  # every update is gated on active: a dead segment is a no-op
+            live_t = _live_tiles(state.active, tiles_full, rt)
+            n_tiles = int(live_t.sum())
+            count(live_names[1], n_tiles)
+            if n_tiles > nt:
+                state, bufs = body(state, bufs, spawn=False)
+                continue
+            count("segment.narrow", 1)
+            # live tiles first (stable, by tile index), then the partial tail
+            t_order = torch.argsort((~live_t).to(torch.int8), stable=True)[:nt]
+            rows = (t_order[:, None] * rt + torch.arange(rt, device=dev)).reshape(-1)
+            rows = torch.cat([rows, torch.arange(tiles_full * rt, lanes, device=dev)])
+            s_n, b_n = body(
+                LaneState(*(a[..., rows] for a in state)),
+                TraceBuffers(path=bufs.path[..., rows], rcs=bufs.rcs[..., rows]),
+                spawn=False,
+            )
+            for a, b in zip(state, s_n):
+                a[..., rows] = b
+            bufs.path[..., rows] = b_n.path
+            bufs.rcs[..., rows] = b_n.rcs
     if lane_perm is not None:
         inv = torch.empty_like(lane_perm)
         inv[lane_perm] = torch.arange(lanes, device=dev)

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from rts_tpu_torch.engine.intersect import RT_DEFAULT_MAX, HitResult
+from rts_tpu_torch.utils.timing import count, trace_annotation
 
 _BIG = 3.0e38  # "no hit" running-best sentinel, as in the JAX kernel
 _INF = float("inf")
@@ -673,10 +674,11 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
         )
     if err != 0:
         raise RuntimeError(f"mt_traverse kernel launch failed: cudaError {err}")
-    mt_traverse.launches += 1
-    for mode, on in (("K3", shape.mt_prune), ("K4", shape.emit_shade), ("K5", cap > 0),
-                     ("K6", shape.k_max > 0 and not shape.mt_union)):
-        mt_traverse.mode_launches[mode] += int(on)
+    count("traverse.calls", 1)
+    for name, on in (("traverse.calls.K3", shape.mt_prune), ("traverse.calls.K4", shape.emit_shade),
+                     ("traverse.calls.K5", cap > 0),
+                     ("traverse.calls.K6", shape.k_max > 0 and not shape.mt_union)):
+        count(name, int(on))
     return out_t, out_tri, out_b, out_g, out_shade if shape.emit_shade else None, out_stats
 
 
@@ -687,10 +689,11 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
 
     CUDA tensors launch ``csrc/mt_traverse.cu`` (the sweep grid and, when
     ``k_max > 0``, beside it the candidate grid, each one block per ray
-    sub-block) and count the call in ``mt_traverse.launches`` (every
-    call) and ``mt_traverse.mode_launches`` (calls with the K3 prune, the
-    K4 shade epilogue, the K5 live pack, the K6 per-candidate windows):
-    one count per call, whatever number of grids it launches.  Which tiles
+    sub-block) and count the call in the counters (``utils.timing``)
+    ``traverse.calls`` (every call) and ``traverse.calls.K3`` / ``K4`` /
+    ``K5`` / ``K6`` (calls with the K3 prune, the K4 shade epilogue, the
+    K5 live pack, the K6 per-candidate windows): one count per call,
+    whatever number of grids it launches.  Which tiles
     sweep (K2) is known only on the device, so the sweep counts itself
     there: ``mt_traverse.sweep_counts`` is an int32 tensor [2] on the last
     CUDA call's device that the kernel adds to, (calls that swept a tile,
@@ -708,8 +711,6 @@ def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
     raise ValueError(f"mt_traverse runs on CUDA or CPU tensors, got {kind}")
 
 
-mt_traverse.launches = 0
-mt_traverse.mode_launches = {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
 mt_traverse.resident_overflows = torch.zeros((), dtype=torch.int32)
 mt_traverse.sweep_counts = torch.zeros(2, dtype=torch.int32)
 
@@ -858,10 +859,11 @@ def closest_hit_clustered(
         tmin = torch.cat([tmin, torch.zeros(l_pad - l, dtype=f32, device=dev)])
     n_tiles = l_pad // rt
     if candidates > 0:
-        cand, meta, bits, ent = _tile_candidates(
-            origin, direction, tmin, aabb_mn, aabb_mx, rt, sub_tiles, candidates,
-            cand_order, p1_fanout, p1_super_k, p1_fanout0, p1_super_k0,
-        )
+        with trace_annotation("rts.phase1"):
+            cand, meta, bits, ent = _tile_candidates(
+                origin, direction, tmin, aabb_mn, aabb_mx, rt, sub_tiles, candidates,
+                cand_order, p1_fanout, p1_super_k, p1_fanout0, p1_super_k0,
+            )
     else:
         # sweep-only: dummy lists, the overflow flag sends every tile to the sweep
         cand = torch.zeros((n_tiles, 1), dtype=i32, device=dev)
@@ -888,7 +890,8 @@ def closest_hit_clustered(
     shape = TraversalShape(rt, cluster_size, gs, ss, sub_tiles, candidates, mt_group, mt_tail,
                            bool(mt_prune and candidates > 0), bool(emit_shade),
                            bool(mt_union or candidates <= 0), resident_cap if resident else 0)
-    best_t, best_tri, best_b, best_g, shade, stats = (traverse or mt_traverse)(inp, shape)
+    with trace_annotation("rts.traverse"):
+        best_t, best_tri, best_b, best_g, shade, stats = (traverse or mt_traverse)(inp, shape)
     best_t = best_t[:l]
     found = best_t < RT_DEFAULT_MAX
     hit = HitResult(

@@ -35,6 +35,7 @@ from rts_tpu_torch.engine.animate import SceneBase
 from rts_tpu_torch.engine.cpi import CpiResult, CpiSpec, PulseBatch, make_pulse_fn, map_pulses
 from rts_tpu_torch.engine.types import TraceConfig
 from rts_tpu_torch.engine.wavefront import TraceResult
+from rts_tpu_torch.utils.timing import trace_annotation
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 # what each dtype of a CpiResult or TraceResult travels as: the integer
@@ -121,25 +122,31 @@ def trace_cpi_sharded(base: SceneBase, batch: PulseBatch, cfg: TraceConfig, spec
     Each rank traces its block of pulses through ``make_pulse_fn(...,
     fan_slice=(ray_shards, its ray index))``; each pulse's lanes are
     gathered over the ray group and put back in order (``regather_lanes``)
-    before the aggregation, and the pulse blocks over the pulse group."""
-    p = batch.times.shape[0]
-    pulse_shards, ray_shards = mesh.size(0), mesh.size(1)
-    if p % pulse_shards:
-        raise ValueError(f"pulse count {p} not divisible by pulse shards {pulse_shards}")
-    if cfg.rays_per_fan % ray_shards:
-        raise ValueError(f"N^3={cfg.rays_per_fan} not divisible by ray shards {ray_shards}")
-    _check_backend(mesh, base.tri_verts.device)
-    f_local = cfg.rays_per_fan // ray_shards
-    ray_group, pulse_group = mesh.get_group("ray"), mesh.get_group("pulse")
-    one_pulse, aggregate = make_pulse_fn(base, cfg, spec, fan_slice=(ray_shards, mesh.get_local_rank("ray")))
+    before the aggregation (the ``rts.gather.ray`` spans), and the pulse
+    blocks over the pulse group (``rts.gather.pulse``); the call is the
+    ``rts.cpi`` span."""
+    with trace_annotation("rts.cpi"):
+        p = batch.times.shape[0]
+        pulse_shards, ray_shards = mesh.size(0), mesh.size(1)
+        if p % pulse_shards:
+            raise ValueError(f"pulse count {p} not divisible by pulse shards {pulse_shards}")
+        if cfg.rays_per_fan % ray_shards:
+            raise ValueError(f"N^3={cfg.rays_per_fan} not divisible by ray shards {ray_shards}")
+        _check_backend(mesh, base.tri_verts.device)
+        f_local = cfg.rays_per_fan // ray_shards
+        ray_group, pulse_group = mesh.get_group("ray"), mesh.get_group("pulse")
+        one_pulse, aggregate = make_pulse_fn(base, cfg, spec, fan_slice=(ray_shards, mesh.get_local_rank("ray")))
 
-    def regather(x):
-        return regather_lanes(_all_gather(x, ray_group), cfg.slot_multiplier, f_local)
+        def regather(x):
+            return regather_lanes(_all_gather(x, ray_group), cfg.slot_multiplier, f_local)
 
-    def per_pulse(*args):
-        res, power, doppler, delay = one_pulse(*args)
-        res = TraceResult(*(regather(a) for a in res))
-        return aggregate(res, regather(power), regather(doppler), regather(delay))
+        def per_pulse(*args):
+            res, power, doppler, delay = one_pulse(*args)
+            with trace_annotation("rts.gather.ray"):
+                res = TraceResult(*(regather(a) for a in res))
+                power, doppler, delay = regather(power), regather(doppler), regather(delay)
+            return aggregate(res, power, doppler, delay)
 
-    local = map_pulses(per_pulse, shard_batch(batch, mesh))
-    return _tree(lambda x: torch.cat(_all_gather(x, pulse_group)), local)
+        local = map_pulses(per_pulse, shard_batch(batch, mesh))
+        with trace_annotation("rts.gather.pulse"):
+            return _tree(lambda x: torch.cat(_all_gather(x, pulse_group)), local)

@@ -31,6 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from rts_tpu_torch.utils.timing import trace_annotation
+
 # elements of one [pulses, lanes, samples] intermediate of synthesize_cpi
 # (complex128: 64 MiB); longer CPIs render in chunks of pulses
 _SYNTH_CHUNK_ELEMS = 1 << 22
@@ -272,20 +274,21 @@ def render_cpi_result(
     over Response objects (ray_tracer.cpp:1290-1321).  All four
     quantities are the path-group aggregates (aggregation.cu:89-93,169;
     ray_tracer.cpp:1310-1316); the phase is ``agg.phase`` alone, as in
-    ``rts_tpu``.
+    ``rts_tpu``.  The call is the ``rts.render`` span.
     """
-    valid = out.agg.emit & (out.received == rx_index)
-    samples = synthesize_cpi(
-        out.agg.power, out.agg.delay, out.agg.phase, out.agg.doppler, valid, grid,
-        tx_power=tx_power, pulse_length=pulse_length, chirp_rate=chirp_rate, wave=wave,
-    )
-    if compress:
-        replica = waveform_replica(grid, pulse_length=pulse_length, chirp_rate=chirp_rate, wave=wave,
-                                   device=samples.device)
-        bw = wave.bandwidth if wave is not None else abs(chirp_rate) * pulse_length
-        samples = pulse_compress(samples, replica, window=range_window, sample_rate=grid.sample_rate,
-                                 bandwidth=bw)
-    return range_doppler_map(samples), samples
+    with trace_annotation("rts.render"):
+        valid = out.agg.emit & (out.received == rx_index)
+        samples = synthesize_cpi(
+            out.agg.power, out.agg.delay, out.agg.phase, out.agg.doppler, valid, grid,
+            tx_power=tx_power, pulse_length=pulse_length, chirp_rate=chirp_rate, wave=wave,
+        )
+        if compress:
+            replica = waveform_replica(grid, pulse_length=pulse_length, chirp_rate=chirp_rate, wave=wave,
+                                       device=samples.device)
+            bw = wave.bandwidth if wave is not None else abs(chirp_rate) * pulse_length
+            samples = pulse_compress(samples, replica, window=range_window, sample_rate=grid.sample_rate,
+                                     bandwidth=bw)
+        return range_doppler_map(samples), samples
 
 
 def responses_to_map(

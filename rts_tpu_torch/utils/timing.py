@@ -1,85 +1,69 @@
-"""Phase timing + profiling scaffolding (counterpart of
+"""Spans and counters of the port's layers (counterpart of
 ``rts_tpu.utils.timing``).
 
-The reference's observability is gettimeofday printfs around setup /
-kernel / post-processing / aggregation (ray_tracer.cpp:1156-1170,
-1329-1332; aggregation.cu:137-166).  ``PhaseTimer`` is the structured
-equivalent; ``trace_annotation`` adds named regions to ``torch.profiler``
-traces so device timelines show simulation phases.
+``trace_annotation(name)`` is the one span.  While ``torch.profiler``
+records, it is a RecordFunction region (``_REGION``): a host event on the
+profiler's clock, inside which the operators and the device work launched
+under it can be found.  Otherwise it costs one check of
+``torch.autograd._profiler_enabled()`` and returns a shared no-op context:
+no region, no allocation.
 
-PyTorch returns before the card finishes: pass a tensor (or a nested
-tuple of them) as ``PhaseTimer.phase(sync=...)`` to wait for the card
-before the phase's clock stops.
+``count(name, value)`` adds to a registry read by ``counters()`` and
+cleared by ``reset()``.  A Python int, a value the host already holds, is
+added always.  A 0-d tensor, a value that lives on the device, is kept
+unread and only while a profiler records; ``counters()`` reads it, once,
+so that counting adds no host read inside the pulse loop.  Callers compute
+such a tensor only when ``profiling()`` is true.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
-import time
-from typing import Dict, List, Optional
 
 import torch
 
-
-@dataclasses.dataclass
-class PhaseTimer:
-    """Accumulating named-phase wall-clock timer."""
-
-    totals: Dict[str, float] = dataclasses.field(default_factory=dict)
-    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
-    _order: List[str] = dataclasses.field(default_factory=list)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _sync(sync)
-            dt = time.perf_counter() - t0
-            if name not in self.totals:
-                self.totals[name] = 0.0
-                self.counts[name] = 0
-                self._order.append(name)
-            self.totals[name] += dt
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in self._order:
-            n = self.counts[name]
-            tot = self.totals[name]
-            lines.append(f"{name}: {tot:.4f}s total, {n} calls, {tot / n:.4f}s avg")
-        return "\n".join(lines)
-
-    def rays_per_second(self, phase: str, rays: int) -> Optional[float]:
-        tot = self.totals.get(phase)
-        return rays / tot if tot else None
+_OFF = contextlib.nullcontext()
+# PyTorch's light RecordFunction context, not ``record_function``: under a
+# profiler with CUDA activity a ``record_function`` region (a user
+# annotation) made a traced pulse ~20% longer on an H100, this one ~5%
+_REGION = torch._C._profiler._RecordFunctionFast
+_host: dict[str, int] = {}
+_device: dict[str, list] = {}
 
 
-def _first_tensor(x):
-    if torch.is_tensor(x):
-        return x
-    if isinstance(x, (tuple, list)):
-        for y in x:
-            t = _first_tensor(y)
-            if t is not None:
-                return t
-    return None
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process."""
+    return torch.autograd._profiler_enabled()
 
 
-def _sync(x):
-    """Wait for the card when ``x`` holds a CUDA tensor (a CPU tensor is
-    ready when the call returns)."""
-    t = _first_tensor(x)
-    if t is not None and t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
-@contextlib.contextmanager
 def trace_annotation(name: str):
-    """Named region in torch.profiler traces (no-op if profiler inactive)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named region of the profiler's trace while one records; else a
+    shared no-op context.  Give it a fixed name: it runs in the pulse loop."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _REGION(name)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (an int, or a 0-d tensor kept while profiling) to the
+    counter ``name``."""
+    if isinstance(value, torch.Tensor):
+        if torch.autograd._profiler_enabled():
+            _device.setdefault(name, []).append(value)
+        return
+    _host[name] = _host.get(name, 0) + value
+
+
+def counters() -> dict[str, int]:
+    """Every counter since the last ``reset()``, by name; the device values
+    are read here (one host read a counter) and folded into the host's."""
+    for name, values in _device.items():
+        _host[name] = _host.get(name, 0) + int(torch.stack([v.to(torch.int64) for v in values]).sum())
+    _device.clear()
+    return dict(sorted(_host.items()))
+
+
+def reset() -> None:
+    """Clear every counter."""
+    _host.clear()
+    _device.clear()

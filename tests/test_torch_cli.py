@@ -323,19 +323,3 @@ def test_vectypes_match_rts_tpu():
     assert tv.Vec3(*a).length == jv.Vec3(*a).length
     assert dataclasses.astuple(tv.svec3(b)) == dataclasses.astuple(jv.svec3(b))
     assert dataclasses.astuple(tv.SVec3.from_cartesian(tv.Vec3())) == (0.0, 0.0, 0.0)
-
-
-def test_phase_timer_and_trace_annotation():
-    timer = tu.PhaseTimer()
-    x = torch.ones(8)
-    for _ in range(2):
-        with timer.phase("trace", sync=(x, None)):
-            x = x * 2
-    assert timer.counts == {"trace": 2} and timer.totals["trace"] > 0
-    assert timer.report().startswith("trace: ") and "2 calls" in timer.report()
-    assert timer.rays_per_second("trace", 100) == pytest.approx(100 / timer.totals["trace"])
-    assert timer.rays_per_second("render", 100) is None
-    with torch.profiler.profile() as prof:
-        with tu.trace_annotation("rts-render"):
-            torch.ones(4).sum()
-    assert any(e.key == "rts-render" for e in prof.key_averages())

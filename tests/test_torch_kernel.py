@@ -25,6 +25,7 @@ from rts_tpu_torch.geometry import rect_mesh, sphere_mesh
 from rts_tpu_torch.geometry.scene import compile_scene
 from rts_tpu_torch.ops import cluster_trace as TCT
 from rts_tpu_torch.ops import closest_hit_clustered, mt_traverse_reference
+from rts_tpu_torch.utils import timing
 
 CS, RT = 128, 128
 _MODES = {
@@ -33,6 +34,11 @@ _MODES = {
     "forced_overflow": dict(candidates=16, mt_group=4, p1_fanout=2, p1_super_k=1, sub_tiles=4),
     "sweep_supergroups": dict(candidates=0, group_size=2, super_size=2, sub_tiles=2),
 }
+
+
+def _calls(mode=None) -> int:
+    """The kernel calls counted so far: all, or those of one mode."""
+    return timing.counters().get("traverse.calls" if mode is None else f"traverse.calls.{mode}", 0)
 
 
 @pytest.fixture
@@ -84,10 +90,10 @@ def test_cuda_kernel_matches_plain(cuda_device, mode):
     args = (o, d, tmin, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
     kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1)
     kw.update(_MODES[mode])
-    before = TCT.mt_traverse.launches
+    before = _calls()
     got = closest_hit_clustered(*args, **kw)
     torch.cuda.synchronize()
-    assert TCT.mt_traverse.launches == before + 1
+    assert _calls() == before + 1
     ref = closest_hit_clustered(*args, traverse=mt_traverse_reference, **kw)
     assert int(ref.found.sum()) > 60
     for name in ("found", "tri", "t", "beta", "gamma"):
@@ -108,10 +114,10 @@ def test_cuda_kernel_prune_matches_plain(cuda_device, group):
             torch.zeros(3, device=cuda_device))
     kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, candidates=48,
               mt_group=group, mt_tail=True, sub_tiles=8 if group > 1 else 4)
-    before = TCT.mt_traverse.mode_launches["K3"]
+    before = _calls("K3")
     got = closest_hit_clustered(*args, mt_prune=True, **kw)
     torch.cuda.synchronize()
-    assert TCT.mt_traverse.mode_launches["K3"] == before + 1
+    assert _calls("K3") == before + 1
     ref = closest_hit_clustered(*args, mt_prune=True, traverse=mt_traverse_reference, **kw)
     off = closest_hit_clustered(*args, **kw)
     assert int(ref.found.sum()) > 300
@@ -130,10 +136,10 @@ def test_cuda_kernel_shade_matches_plain(cuda_device, mode):
     o, d, tmin = _rays(cuda_device)
     args = (o, d, tmin, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
     kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, **_MODES[mode])
-    before = TCT.mt_traverse.mode_launches["K4"]
+    before = _calls("K4")
     got = closest_hit_clustered(*args, emit_shade=True, shade_pack=sc.shade_pack, **kw)
     torch.cuda.synchronize()
-    assert TCT.mt_traverse.mode_launches["K4"] == before + 1
+    assert _calls("K4") == before + 1
     ref = closest_hit_clustered(*args, emit_shade=True, shade_pack=sc.shade_pack,
                                 traverse=mt_traverse_reference, **kw)
     off = closest_hit_clustered(*args, **kw)
@@ -153,10 +159,10 @@ def test_cuda_kernel_resident_matches_plain(cuda_device, cap):
     args = (o, d, tmin, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
     kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, candidates=64, mt_group=8,
               sub_tiles=8)
-    before = TCT.mt_traverse.mode_launches["K5"]
+    before = _calls("K5")
     got, stats = closest_hit_clustered(*args, resident_cap=cap, with_stats=True, **kw)
     torch.cuda.synchronize()
-    assert TCT.mt_traverse.mode_launches["K5"] == before + 1
+    assert _calls("K5") == before + 1
     ref, ref_stats = closest_hit_clustered(*args, resident_cap=cap, with_stats=True,
                                            traverse=mt_traverse_reference, **kw)
     off = closest_hit_clustered(*args, **kw)
@@ -178,11 +184,11 @@ def test_cuda_kernel_per_candidate_matches_plain(cuda_device, group, prune):
     args = (*rays, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
     kw = dict(cluster_size=CS, ray_tile=RT, group_size=8, super_size=1, candidates=48,
               mt_group=group, sub_tiles=8)
-    before = dict(TCT.mt_traverse.mode_launches)
+    before = {m: _calls(m) for m in ("K3", "K6")}
     got = closest_hit_clustered(*args, mt_union=False, mt_prune=prune, **kw)
     torch.cuda.synchronize()
-    assert TCT.mt_traverse.mode_launches["K6"] == before["K6"] + 1
-    assert TCT.mt_traverse.mode_launches["K3"] == before["K3"] + int(prune)
+    assert _calls("K6") == before["K6"] + 1
+    assert _calls("K3") == before["K3"] + int(prune)
     ref = closest_hit_clustered(*args, mt_union=False, mt_prune=prune,
                                 traverse=mt_traverse_reference, **kw)
     off = closest_hit_clustered(*args, **kw)
@@ -233,10 +239,10 @@ def test_cuda_kernel_sub_block_mapping(cuda_device, geom, mode):
     args = (*rays, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
     kw = dict(cluster_size=cs, group_size=8, super_size=1, candidates=48, **knobs)
     opts = {**kw, **_CAND_MODES[mode]}
-    before = TCT.mt_traverse.launches
+    before = _calls()
     got, stats = closest_hit_clustered(*args, with_stats=True, **opts)
     torch.cuda.synchronize()
-    assert TCT.mt_traverse.launches == before + 1
+    assert _calls() == before + 1
     ref, ref_stats = closest_hit_clustered(*args, with_stats=True, traverse=mt_traverse_reference,
                                            **opts)
     default = closest_hit_clustered(*args, **kw)

@@ -32,6 +32,7 @@ from rts_tpu.ops import pack_tri_fields
 
 from rts_tpu_torch.ops import cluster_trace as TCT
 from rts_tpu_torch.ops import closest_hit_clustered, mt_traverse_reference
+from rts_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -343,12 +344,12 @@ def test_cpu_tensors_take_the_plain_version():
     counts a kernel launch."""
     pack, mn, mx = _scene()
     o, d, tmin = _rays(l=RT)
-    before = TCT.mt_traverse.launches
+    before = timing.counters().get("traverse.calls", 0)
     args = (_t(o), _t(d), _t(tmin), _t(pack), _t(mn), _t(mx))
     kw = dict(cluster_size=CS, ray_tile=RT, candidates=16, mt_group=4)
     a = closest_hit_clustered(*args, **kw)
     b = closest_hit_clustered(*args, traverse=mt_traverse_reference, **kw)
-    assert TCT.mt_traverse.launches == before
+    assert timing.counters().get("traverse.calls", 0) == before
     assert a.shade is None and b.shade is None
     for name in ("t", "tri", "beta", "gamma", "found"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name

@@ -21,7 +21,7 @@ against the card, the port's examples, its bench and its contract check.  There 
 CUDA card it exits non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
-  1. build the traversal kernel (csrc/mt_traverse.cu) from source, with the
+  1. build the kernels (csrc/mt_traverse.cu, csrc/phase1.cu) from source, with the
      compiler's register report; the candidate and sweep grids' blocks and
      warps per SM at the two paths' shapes;
   2. kernel against its plain PyTorch version: the segment-1 rays of one
@@ -175,7 +175,13 @@ Phases (each line stamped with the card's name and power limit):
      first;
   y. the port's contract check (rts_tpu_torch.contract.main) on the
      card, plain and --refr: the production trace on the card against the
-     float64 brute-force engine on the host CPU; its record must be ok.
+     float64 brute-force engine on the host CPU; its record must be ok;
+  z. phase 1's kernel (csrc/phase1.cu) on every closest_hit_clustered
+     call of pulse 0 of the terrain CPI (config 4) and of config 5 at the
+     cpi256 knobs: the cand/meta/bits/ent its launch in the main path gave
+     phase 2, equal to _tile_candidates' on the CPU; the kernel's time and
+     the plain version's on the card, and the kernel's bound.  Runs alone as
+     python3 -c "import chip_smoke as s, torch; s.phase1_phases(s.card_line(), torch.device('cuda'))"
 
 Each kernel-against-plain phase (2, a, b, f, g, h) counts the (ray,
 column) pairs the plain version evaluates and the distinct clusters whose
@@ -196,7 +202,9 @@ terrain among them; K3 with its launches by path, the moving CPI and the
 bench's sphere;
 the sweep, K2, with each of its
 three calls: terrain-20k sweep-only, the terrain overflow, the moving
-swept tiles); the last line is the JSON result.
+swept tiles; phase 1's kernel with phase z's calls and its launches by
+path, the phase1.calls counter of every main-path run above, each equal
+to that run's traversal calls); the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -264,6 +272,7 @@ FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
 MT_OPS = 38  # per (ray, column): 37 multiplies, adds, subtracts and a reciprocal (mt_columns)
 SLAB_OPS = 22  # per (ray, box): 6 subtracts, 6 multiplies, 10 minima/maxima (slab)
+P1_SLAB_OPS = 24  # per (ray, box) of phase 1: 6 subtracts, 6 multiplies, 12 minima/maxima (phase1.cu:slab)
 
 
 def card_line() -> str:
@@ -507,6 +516,19 @@ def kernel_calls(mode=None) -> int:
     from rts_tpu_torch.utils import timing
 
     return timing.counters().get("traverse.calls" if mode is None else f"traverse.calls.{mode}", 0)
+
+
+def phase1_calls(what: str) -> int:
+    """Phase 1's kernel launches since reset_counts (the ``phase1.calls``
+    counter of ``rts_tpu_torch.utils.timing``), on a path whose every
+    traversal call has candidates: one launch a call, so it must equal
+    kernel_calls() (both 0 on a brute-force run, as the bench's --tiny)."""
+    from rts_tpu_torch.utils import timing
+
+    n = timing.counters().get("phase1.calls", 0)
+    if n != kernel_calls():
+        raise AssertionError(f"{what}: {n} phase-1 kernel launches against {kernel_calls()} traversal calls")
+    return n
 
 
 def sweep_counts():
@@ -867,6 +889,7 @@ def dielectric_phases(card: str, dev) -> dict:
         sync()
         first_s = time.perf_counter() - t0
         launches = kernel_calls()
+        p1 = phase1_calls("phase n")
         sweeps, swept = sweep_counts()
         check_replay_overflow(out, cfg)
     received = int((out.received >= 0).sum())
@@ -1010,7 +1033,7 @@ def dielectric_phases(card: str, dev) -> dict:
                     f"({pairs:.4g} pairs at most, {pairs / f64_s:.4g} pairs/s)")
         del f64_state, prod, f64
     stamp(card, f"phases n and o: {t_o - t_n:.1f} s, {time.perf_counter() - t_o:.1f} s")
-    return dict(launches=launches, sweeps=sweeps, swept=swept, calls=k1_calls)
+    return dict(launches=launches, p1=p1, sweeps=sweeps, swept=swept, calls=k1_calls)
 
 
 def brute_phases(card: str, dev, params) -> None:
@@ -1306,6 +1329,7 @@ def render_phases(card: str, dev) -> dict:
             sync()
             run_s = time.perf_counter() - t0
         launches, (sweeps, swept) = kernel_calls(), sweep_counts()
+        p1 = phase1_calls("phase p")
         trace_peak = (torch.cuda.max_memory_allocated(dev) - held0) / 1e9
         per_pulse = (out.received >= 0).sum(1)
         most = int(per_pulse.max())
@@ -1504,6 +1528,7 @@ def render_phases(card: str, dev) -> dict:
             cli_launches = kernel_calls()
             if cli_launches == 0:
                 raise AssertionError("phase r: the CLI's clustered CPI never launched the traversal kernel")
+            cli_p1 = phase1_calls("phase r, the CLI's clustered CPI")
     worst = {}
     for what, tol in (("cpi", 1e-6), ("run", 1e-9)):
         if printed[what, "cuda"] != printed[what, "cpu"]:
@@ -1544,7 +1569,7 @@ def render_phases(card: str, dev) -> dict:
                 f"{worst['run']['doppler']:.3e}, phase {worst['run']['phase']:.3e}; the .npz equals the "
                 f"in-memory responses; info lists {len(names)} receivers and targets")
     stamp(card, f"phases p, q, r: {t_q - t_p:.1f} s, {t_r - t_q:.1f} s, {time.perf_counter() - t_r:.1f} s")
-    return dict(launches=launches, cli_launches=cli_launches, call=k1, render_ms=render_ms, state=state, out=out,
+    return dict(launches=launches, p1=p1, cli_launches=cli_launches, cli_p1=cli_p1, call=k1, render_ms=render_ms, state=state, out=out,
                 warm_s=warm_s)
 
 
@@ -1591,6 +1616,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
         sync()
         split_s = time.perf_counter() - t0
         s_launches = kernel_calls()
+        s_p1 = phase1_calls("phase s")
         backend = dist.get_backend(mesh.get_group("ray"))
         t0 = time.perf_counter()  # trace_cpi again after the split: phase p, split, phase p
         trace_cpi(*state)
@@ -1637,6 +1663,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
         return res, aggregate(res, *(rg([part[j] for part in parts]) for j in (1, 2, 3)))
 
     refs = [pulse_in_blocks(1, p) for p in range(SPLIT_PULSES)]
+    reset_counts(dev)
     t_launches, t_rows = 0, {}
     for k in RAY_BLOCKS:
         if n3 % k:
@@ -1668,6 +1695,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
             raise AssertionError(f"phase t {k} blocks: a block never launched K1")
         t_launches += sum(per_block)
         t_rows[k] = dict(ties=ties, launches=per_block)
+    t_p1 = phase1_calls("phase t")
     # ms per pulse of each split, in turns: whole, 3, 9, 9, 3, whole
     turns = {k: [] for k in (1, *RAY_BLOCKS)}
     for k in (1, *RAY_BLOCKS, *reversed(RAY_BLOCKS), 1):
@@ -1790,7 +1818,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
         sys.argv, tempfile.tempdir = argv, tmp
     stamp(card, f"phases s, t, u, v, w: {t_t - t_s:.1f} s, {t_u - t_t:.1f} s, {t_v - t_u:.1f} s, "
                 f"{t_w - t_v:.1f} s, {time.perf_counter() - t_w:.1f} s")
-    return dict(s_launches=s_launches, t_launches=t_launches)
+    return dict(s_launches=s_launches, s_p1=s_p1, t_launches=t_launches, t_p1=t_p1)
 
 
 def quiet(fn, *args):
@@ -1830,7 +1858,7 @@ def bench_phases(card: str, dev) -> dict:
         k3 = kernel_calls("K3")
         k1 = kernel_calls() - k3 - kernel_calls("K5") - kernel_calls("K6")
         sweeps, swept = sweep_counts()
-        launches[what] = dict(K1=k1, K3=k3, sweeps=sweeps, swept=swept)
+        launches[what] = dict(K1=k1, K3=k3, P1=phase1_calls(f"phase x {what}"), sweeps=sweeps, swept=swept)
         received = int((traces[-1].received >= 0).sum())
         for line in lines:
             stamp(card, f"phase x {what}: {line}")
@@ -1860,7 +1888,8 @@ def bench_phases(card: str, dev) -> dict:
             raise AssertionError(f"phase y {argv}: the 1e-6 contract fails: {record}")
     stamp(card, f"phases x and y: {t_y - t_x:.1f} s, {time.perf_counter() - t_y:.1f} s")
     return dict(k1_terrain=launches["terrain-1M"]["K1"], k3_sphere=launches["sphere-1.31M"]["K3"],
-                sphere_sweeps=launches["sphere-1.31M"]["sweeps"], sphere_swept=launches["sphere-1.31M"]["swept"])
+                sphere_sweeps=launches["sphere-1.31M"]["sweeps"], sphere_swept=launches["sphere-1.31M"]["swept"],
+                p1={what: n["P1"] for what, n in launches.items()})
 
 
 def oracle_scenes() -> dict:
@@ -1897,6 +1926,62 @@ def oracle_scenes() -> dict:
                             Parameters(num_rays=2, max_refl_depth=2, max_refr_depth=2), z, [0.0, 0.0],
                             [0.01, 0.01, 0.0], rx([z, [2000.0, 0.0, 0.0]], [0.0, np.pi], 8.0)),
     }
+
+
+def phase1_phases(card: str, dev) -> dict:
+    """Phase z: phase 1's kernel on every closest_hit_clustered call of
+    pulse 0 of the terrain CPI and of config 5 (cpi256 knobs): the lists
+    its launch in the pulse gave phase 2 against _tile_candidates' on the
+    CPU, element for element; its time and the plain version's on the same
+    operands on the card (CUDA events); its bound, the larger of
+    P1_SLAB_OPS per live ray and tested box over the FP32 peak and the
+    rays, cluster boxes and lists, each moved once, over the memory rate.
+    Returns the kernels line's entry, less its launches (main's, read from
+    the main paths' runs)."""
+    from rts_tpu_torch import Parameters
+    from rts_tpu_torch.ops import cluster_trace as CT
+    from rts_tpu_torch.sim import prepare_cpi
+
+    calls = []
+    for what, world, rays, knobs in (("terrain", terrain_world(1, TRIS), NUM_RAYS, {}),
+                                     ("config 5", imaging_world(1, TRIS), IMAGING_RAYS, IMAGING_KNOBS)):
+        state = prepare_cpi(world, Parameters(num_rays=rays, max_refl_depth=2), preset="production",
+                            device=dev, **knobs)
+        cfg = state[2]
+        opts = dict(cand_order=cfg.cand_order, p1_fanout=cfg.p1_fanout, p1_super_k=cfg.p1_super_k,
+                    p1_fanout0=cfg.p1_fanout0, p1_super_k0=cfg.p1_super_k0)
+        for seg, (inp, shape) in enumerate(segment_calls(state, 0)[1], 1):
+            a = (inp.origin, inp.direction, inp.tmin, inp.mn, inp.mx, shape.ray_tile, shape.sub_tiles,
+                 shape.k_max)
+            ref = CT._tile_candidates(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in a), **opts)
+            for x, y, name in zip((inp.cand, inp.meta, inp.bits, inp.ent), ref, ("cand", "meta", "bits", "ent")):
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"phase z {what} segment {seg}: {name} differs from the plain "
+                                         f"version's in {int((x.cpu() != y).sum())} places")
+            ms = time_ms(lambda: CT.tile_candidates(*a, **opts), 20)
+            plain_ms = time_ms(lambda: CT._tile_candidates(*a, **opts), 3)
+            o, d, _, mn = a[:4]
+            shp = CT.phase1_shape(o.shape[1], mn.shape[0], *a[5:], **opts)
+            live = int(((d * d).sum(0) > 0).sum())
+            boxes = shp.s0 + (shp.k0 * shp.f0 if shp.s0 else shp.s) + shp.kf
+            ops = P1_SLAB_OPS * live * boxes
+            nbytes = 28 * o.shape[1] + 24 * mn.shape[0] + 4 * shp.tiles * (3 * shape.k_max + 2)
+            t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+            r = {"what": f"{what} segment {seg}", "tiles": shp.tiles, "live_rays": live,
+                 "boxes_a_ray": boxes, "level0": shp.s0 > 0, "ms": ms, "plain_ms": plain_ms,
+                 "ops": ops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            r["share"] = r["bound_ms"] / ms
+            calls.append(r)
+            stamp(card, f"phase z {r['what']}: {shp.tiles} tiles of {shape.ray_tile}, {live} live rays x "
+                        f"{boxes} boxes, the pulse's lists equal to the plain version's; kernel {ms:.4f} ms, "
+                        f"plain {plain_ms:.3f} ms a call; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                        f"{100 * r['share']:.1f}% of it")
+        del state
+    return {"name": "phase1 (tile candidates)", "route": "cuda",
+            "source": "rts_tpu_torch/ops/csrc/phase1.cu",
+            "replaces": "none: rts_tpu/ops/cluster_trace.py:_tile_candidates is plain XLA",
+            "calls": calls}
 
 
 def main() -> int:
@@ -2027,6 +2112,7 @@ def main() -> int:
     sync()
     first_s = time.perf_counter() - t0
     launches = kernel_calls()
+    p1_terrain = phase1_calls("phase 3")
     t_sweeps, t_swept = sweep_counts()
     received = int((out.received >= 0).sum())
     if launches == 0:
@@ -2118,6 +2204,7 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         k3_launches = kernel_calls("K3")
         m_launches = kernel_calls()
+        m_p1 = phase1_calls("phase c")
         k2_launches, m_swept = sweep_counts()
         counts = check_replay_overflow(mout, mcfg)
     m_received = int((mout.received >= 0).sum())
@@ -2157,6 +2244,7 @@ def main() -> int:
     out_s = agg_s(*res_s)
     sync()
     k4_launches = kernel_calls("K4")
+    d_p1 = phase1_calls("phase d")
     one_g, agg_g = make_pulse_fn(mbase, mcfg, mspec)
     res_g = one_g(*args0)
     out_g = agg_g(*res_g)
@@ -2251,7 +2339,7 @@ def main() -> int:
 
     # ---- i. the terrain CPI with the live pack (K5) and per-candidate windows (K6)
     CT.mt_traverse.resident_overflows = torch.zeros((), dtype=torch.int32, device=dev)
-    mode_runs = {}
+    mode_runs, mode_p1 = {}, {}
     for mode, option in (("K5", dict(resident_cap=RESIDENT_CAP)), ("K6", dict(mt_union=False))):
         t0 = time.perf_counter()
         state = prepare_cpi(terrain_world(PULSES, TRIS), params, preset="production", device=dev,
@@ -2264,6 +2352,7 @@ def main() -> int:
         sync()
         first_s = time.perf_counter() - t0
         n_mode, n_all = kernel_calls(mode), kernel_calls()
+        mode_p1[mode] = phase1_calls(f"phase i {mode}")
         if n_mode == 0:
             raise AssertionError(f"the terrain CPI with {option} never launched mode {mode}")
         if not same_result(first, out):
@@ -2301,11 +2390,16 @@ def main() -> int:
     img = render_phases(card, dev)
     split = split_phases(card, dev, img)
     xy = bench_phases(card, dev)
+    p1 = phase1_phases(card, dev)
     k2_calls = [k2m, k2, k8]
     k1_paths = {"terrain": launches, "dielectric": diel["launches"], "config 5": img["launches"],
                 "cli": img["cli_launches"], "split config 5": split["s_launches"],
                 "ray blocks": split["t_launches"], "bench terrain": xy["k1_terrain"]}
     k3_paths = {"moving": k3_launches, "bench sphere": xy["k3_sphere"]}
+    p1_paths = {"terrain": p1_terrain, "terrain K5": mode_p1["K5"], "terrain K6": mode_p1["K6"],
+                "moving": m_p1, "moving shade-emit pulse": d_p1, "dielectric": diel["p1"],
+                "config 5": img["p1"], "cli": img["cli_p1"], "split config 5": split["s_p1"],
+                "ray blocks": split["t_p1"], **{f"bench {what}": n for what, n in xy["p1"].items() if n}}
     kernels = [
         # the terrain segment 1 (phase 2); its launches are those of the
         # terrain, dielectric and config-5 main paths and the CLI's, with
@@ -2330,6 +2424,7 @@ def main() -> int:
         entry("mt_traverse K4 (emit_shade)", "521", k4_launches, k4),
         entry(f"mt_traverse K5 (resident live pack, cap {RESIDENT_CAP})", "398", mode_runs["K5"], k5),
         entry("mt_traverse K6 (mt_union=False)", "710", mode_runs["K6"], k6),
+        {**p1, "launches": sum(p1_paths.values()), "launches_by_path": p1_paths},
     ]
 
     print(json.dumps({"kernels": kernels}))

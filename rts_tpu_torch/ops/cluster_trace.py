@@ -5,13 +5,15 @@ layout (rows n, c1, c0, e1, e0, np0; triangles on the last axis); rays
 arrive components-major ([3, L]) and are processed in tiles of
 ``ray_tile``.  Two phases, as in the JAX package:
 
-  PHASE 1 (``_tile_candidates``, plain PyTorch, once per segment): per
-  ray tile, the near-to-far list of clusters that some ray of the tile
-  overlaps (exact per-ray slab tests, evaluated hierarchically), the
-  per-sub-block overlap bits, and an overflow flag for tiles that overlap
-  more clusters than the list holds.  Bit-identical to the JAX phase 1:
-  every ``jax.lax.top_k`` / ``jnp.argsort`` becomes a STABLE
-  ``torch.sort`` (ties toward the lower index, as ``top_k`` breaks them).
+  PHASE 1 (``tile_candidates``, once per segment): per ray tile, the
+  near-to-far list of clusters that some ray of the tile overlaps (exact
+  per-ray slab tests, evaluated hierarchically), the per-sub-block overlap
+  bits, and an overflow flag for tiles that overlap more clusters than the
+  list holds.  On a CUDA tensor it launches the hand-written kernel
+  ``csrc/phase1.cu``; on a CPU tensor it runs the plain PyTorch version
+  ``_tile_candidates``, bit-identical to the JAX phase 1 (every
+  ``jax.lax.top_k`` / ``jnp.argsort`` becomes a STABLE ``torch.sort``:
+  ties toward the lower index, as ``top_k`` breaks them) and to the kernel.
 
   PHASE 2 (``mt_traverse``): per tile, Moller-Trumbore over the
   candidate windows (K1), optionally with the running-best window prune
@@ -73,6 +75,46 @@ def _top_k_indices(key, k: int):
     return torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+class Phase1Shape(NamedTuple):
+    """The sizes of one phase-1 call, with ``_tile_candidates``' names."""
+
+    tiles: int
+    fanout: int
+    s: int  # supergroups (runs of ``fanout`` clusters)
+    n_s: int  # supergroup box rows: s0 * f0 with level 0, else s
+    ks: int  # supergroups a tile admits
+    f0: int
+    s0: int  # level-0 boxes; 0 when level 0 is off
+    k0: int  # level-0 boxes a tile admits
+    kf: int  # member slots a tile tests at level 2
+    k_eff: int  # the sorted list's width, min(k_max, kf)
+    smem: int  # csrc/phase1.cu's dynamic shared memory, bytes
+
+
+def phase1_sizes(lanes, c, ray_tile, k_max, p1_fanout=None, p1_super_k=None, p1_fanout0=None,
+                 p1_super_k0=None) -> Phase1Shape:
+    """The sizes of a phase-1 call of ``lanes`` rays over ``c`` cluster
+    boxes (reading the module's ``_P1_*`` defaults now): what
+    ``_tile_candidates`` computes with, and what ``csrc/phase1.cu`` is
+    launched with, its shared memory (``smem``: the staged boxes of the
+    widest level, then the flags and lists of every level) among them."""
+    fanout = p1_fanout or _P1_FANOUT
+    s = -(-c // fanout)
+    ks = min(p1_super_k or _P1_SUPER_K, s)
+    f0 = s0 = k0 = 0
+    n_s = n1 = s
+    if s >= _P1_L0_MIN_S:
+        f0 = p1_fanout0 or _P1_FANOUT0
+        s0 = -(-s // f0)
+        k0 = min(p1_super_k0 or _P1_SUPER_K0, s0)
+        n_s, n1 = s0 * f0, k0 * f0
+        ks = min(ks, n1)
+    kf = ks * fanout
+    k_eff = min(k_max, kf)
+    smem = 4 * (6 * max(s0, n1, kf) + s0 + k0 + n1 + ks + 2 * kf + 3 * k_eff)
+    return Phase1Shape(lanes // ray_tile, fanout, s, n_s, ks, f0, s0, k0, kf, k_eff, smem)
+
+
 def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max,
                      cand_order="near", p1_fanout=None, p1_super_k=None, p1_fanout0=None,
                      p1_super_k0=None):
@@ -95,13 +137,14 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     l = origin.shape[1]
     c = mn.shape[0]
     f32 = torch.float32
+    shp = phase1_sizes(l, c, ray_tile, k_max, p1_fanout, p1_super_k, p1_fanout0, p1_super_k0)
+    tiles, fanout, s, ks, kf, k_eff = shp.tiles, shp.fanout, shp.s, shp.ks, shp.kf, shp.k_eff
     o = origin.to(f32)
     d = direction.to(f32)
     alive = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) > 0.0
     big = _BIG
     mnf = mn.to(f32)
     mxf = mx.to(f32)
-    tiles = l // ray_tile
     inv = 1.0 / torch.where(d == 0.0, 1.0, d)
     tmin_f = tmin.to(f32)
     arange = lambda n: torch.arange(n, dtype=torch.int32, device=dev)
@@ -157,19 +200,14 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
         return torch.where(bad, _INF, r_mn), torch.where(bad, _INF, r_mx)
 
     # --- level 1: supergroup boxes (runs of ``fanout`` clusters)
-    fanout = p1_fanout or _P1_FANOUT
-    s = -(-c // fanout)
     c_pad1 = s * fanout
     mnp, mxp = pad_inf(mnf, c_pad1), pad_inf(mxf, c_pad1)
     s_mn, s_mx = run_boxes(mnp, mxp, s, fanout)
 
-    ks = min(p1_super_k or _P1_SUPER_K, s)
-    if s >= _P1_L0_MIN_S:
+    if shp.s0:
         # --- level 0: runs of f0 supergroups tested dense, then only the
         # member supergroups of each tile's admitted level-0 boxes
-        f0 = p1_fanout0 or _P1_FANOUT0
-        s0 = -(-s // f0)
-        s_pad0 = s0 * f0
+        f0, s0, k0, s_pad0 = shp.f0, shp.s0, shp.k0, shp.n_s
         smnp, smxp = pad_inf(s_mn, s_pad0), pad_inf(s_mx, s_pad0)
         fin0 = torch.isfinite(smnp[:, 0:1])
         z_mn = torch.where(fin0, smnp, big).reshape(s0, f0, 3).amin(1)
@@ -179,7 +217,6 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
         z_mx = torch.where(z_bad, _INF, z_mx)
         ov_z, _ = batch_slab(z_mn, z_mx)  # [l, S0]
         ov_z_t = ov_z.reshape(tiles, ray_tile, s0).any(1)
-        k0 = min(p1_super_k0 or _P1_SUPER_K0, s0)
         z_count = ov_z_t.sum(1)
         z_order = _top_k_indices(ov_z_t.to(torch.int32) * (s0 - arange(s0)), k0)
         l0_over = z_count > k0
@@ -189,9 +226,8 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
         ov_s_t = ov_s1.any(1)
         nsl = k0 * f0
         s_count = ov_s_t.sum(1)
-        sel1 = _top_k_indices(ov_s_t.to(torch.int32) * (nsl - arange(nsl)), min(ks, nsl))
+        sel1 = _top_k_indices(ov_s_t.to(torch.int32) * (nsl - arange(nsl)), ks)
         s_order = torch.gather(sg_slots, 1, sel1)
-        ks = min(ks, nsl)
         s_over = l0_over | (s_count > ks)
     else:
         ov_s, _ = batch_slab(s_mn, s_mx)  # [l, S]
@@ -204,7 +240,6 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     members = (s_order[..., None] * fanout + arange(fanout)).reshape(tiles, ks * fanout)
     members = members.clamp(max=c_pad1 - 1)
     rs = ray_tile // sub_tiles
-    kf = ks * fanout
     step = max(1, _P1_CHUNK_ELEMS // (ray_tile * kf))
     parts = []
     for t0 in range(0, tiles, step):
@@ -222,7 +257,6 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     bits_all = (ov_sb.to(torch.int32) * weights[None, :, None]).sum(1, dtype=torch.int32)
 
     count = ov_ct.sum(1).to(torch.int32)
-    k_eff = min(k_max, kf)
     tkey = torch.where(ov_ct, tnear_t, _INF)
     sel = _top_k_indices(-tkey, k_eff)
     order = torch.gather(members, 1, sel).to(torch.int32)
@@ -257,6 +291,36 @@ def _tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max
     bits = torch.where(pos < count_col, bits, 0).to(torch.int32)
     entq = torch.where(pos < count_col, entq, _ENT_PAD).to(torch.int32)
     return order.contiguous(), meta.contiguous(), bits.contiguous(), entq.contiguous()
+
+
+_P1_SMEM_MAX = 48 * 1024 - 64  # the kernel's dynamic shared memory: a block's 48 KiB, less its static words
+
+
+def phase1_shape(lanes, c, ray_tile, sub_tiles, k_max, cand_order="near", p1_fanout=None,
+                 p1_super_k=None, p1_fanout0=None, p1_super_k0=None) -> Phase1Shape:
+    """``phase1_sizes`` of a call that ``csrc/phase1.cu`` takes; ValueError
+    for one it does not: a block holds one thread a ray (``ray_tile`` <=
+    1024), the bits one 32-bit word, and its shared memory (``smem``) the
+    flags and lists of every level."""
+    if cand_order not in ("near", "mask"):
+        raise ValueError(f"cand_order must be 'near' or 'mask', got {cand_order!r}")
+    if cand_order == "mask" and sub_tiles > 16:
+        raise ValueError("cand_order='mask' supports sub_tiles <= 16")
+    if not 1 <= ray_tile <= 1024:
+        raise ValueError(f"phase 1 takes ray_tile in [1, 1024] (a thread a ray); got {ray_tile}")
+    if not (1 <= sub_tiles <= 32 and ray_tile % sub_tiles == 0):
+        raise ValueError(f"phase 1 takes sub_tiles in [1, 32] dividing ray_tile ({ray_tile}); "
+                         f"got {sub_tiles}")
+    if lanes < ray_tile or lanes % ray_tile:
+        raise ValueError(f"phase 1 takes whole tiles: {lanes} lanes, ray_tile {ray_tile}")
+    if k_max < 1 or c < 1:
+        raise ValueError(f"phase 1 needs k_max >= 1 and a cluster; got k_max={k_max}, {c} clusters")
+    shp = phase1_sizes(lanes, c, ray_tile, k_max, p1_fanout, p1_super_k, p1_fanout0, p1_super_k0)
+    if shp.smem > _P1_SMEM_MAX:
+        raise ValueError(f"phase 1 would take {shp.smem} bytes of shared memory a block, over "
+                         f"{_P1_SMEM_MAX} ({shp.s0} level-0 boxes, {shp.k0 * shp.f0 or shp.s} "
+                         f"level-1, {shp.kf} member slots)")
+    return shp
 
 
 def _live_set(cand, meta, tri_pack, cap, c, cs):
@@ -537,7 +601,7 @@ def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape, tile_chun
 # ---------------------------------------------------------------------------
 # CUDA kernel binding
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "mt_traverse.cu"
+_CSRCS = tuple(Path(__file__).resolve().parent / "csrc" / f for f in ("mt_traverse.cu", "phase1.cu"))
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rts_tpu_torch"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -552,22 +616,23 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the traversal kernel is built from source at first use")
+    raise RuntimeError("nvcc not found: the kernels are built from source at first use")
 
 
 def build_kernel(verbose: bool = False) -> Path:
-    """Compile ``csrc/mt_traverse.cu`` for sm_90a into ``build/rts_tpu_torch``
-    (once per source hash) and return the shared library's path.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    src = _CSRC.read_bytes()
+    """Compile ``csrc/mt_traverse.cu`` and ``csrc/phase1.cu`` for sm_90a
+    into one library in ``build/rts_tpu_torch`` (once per hash of the
+    sources and flags) and return its path.  ``verbose`` adds ``-Xptxas
+    -v`` and prints the compiler's report."""
+    src = b"".join(p.name.encode() + p.read_bytes() for p in _CSRCS)
     tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libmt_traverse_{tag}.so"
+    out = _BUILD_DIR / f"librts_kernels_{tag}.so"
     if out.exists() and not verbose:
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp, str(_CSRC)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp, *map(str, _CSRCS)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -592,6 +657,9 @@ def _load():
         fn.restype = ctypes.c_int
         lib.mt_traverse_sweep_words.argtypes = [ctypes.c_int] * 3
         lib.mt_traverse_sweep_words.restype = ctypes.c_int
+        fn = lib.phase1_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _Kernel.lib = lib
     return _Kernel.lib
 
@@ -680,6 +748,57 @@ def _mt_traverse_cuda(inp: TraversalInputs, shape: TraversalShape):
                      ("traverse.calls.K6", shape.k_max > 0 and not shape.mt_union)):
         count(name, int(on))
     return out_t, out_tri, out_b, out_g, out_shade if shape.emit_shade else None, out_stats
+
+
+def _tile_candidates_cuda(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max,
+                          cand_order="near", p1_fanout=None, p1_super_k=None, p1_fanout0=None,
+                          p1_super_k0=None):
+    dev = origin.device
+    lanes, c = origin.shape[1], mn.shape[0]
+    shp = phase1_shape(lanes, c, ray_tile, sub_tiles, k_max, cand_order, p1_fanout, p1_super_k,
+                       p1_fanout0, p1_super_k0)
+    f32, i32 = torch.float32, torch.int32
+    for name, x, want in (("origin", origin, (3, lanes)), ("direction", direction, (3, lanes)),
+                          ("tmin", tmin, (lanes,)), ("mn", mn, (c, 3)), ("mx", mx, (c, 3))):
+        _check(name, x, f32, want, dev)
+    boxes = torch.empty((shp.n_s + shp.s0, 6), dtype=f32, device=dev)
+    cand, bits, ent = (torch.empty((shp.tiles, k_max), dtype=i32, device=dev) for _ in range(3))
+    meta = torch.empty((shp.tiles, 2), dtype=i32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        err = lib.phase1_launch(
+            origin.data_ptr(), direction.data_ptr(), tmin.data_ptr(), mn.data_ptr(), mx.data_ptr(),
+            boxes.data_ptr(), cand.data_ptr(), meta.data_ptr(), bits.data_ptr(), ent.data_ptr(),
+            shp.tiles, ray_tile, sub_tiles, k_max, c, shp.fanout, shp.s, shp.n_s, shp.ks,
+            shp.f0, shp.s0, shp.k0, shp.kf, shp.k_eff, int(cand_order == "mask"), shp.smem,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"phase1 kernel launch failed: cudaError {err}")
+    count("phase1.calls", 1)
+    return cand, meta, bits, ent
+
+
+def tile_candidates(origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max,
+                    cand_order="near", p1_fanout=None, p1_super_k=None, p1_fanout0=None,
+                    p1_super_k0=None):
+    """Phase 1: (cand, meta, bits, ent) per ray tile, as ``_tile_candidates``
+    documents them.
+
+    CUDA tensors (f32, contiguous) launch ``csrc/phase1.cu`` (its box
+    pre-pass, then a block per ray tile), bit-identical to
+    ``_tile_candidates``, and add 1 to the counter ``phase1.calls``
+    (``utils.timing``); a call outside the kernel's limits raises
+    ValueError (``phase1_shape``).  CPU tensors run ``_tile_candidates``.
+    """
+    args = (origin, direction, tmin, mn, mx, ray_tile, sub_tiles, k_max, cand_order, p1_fanout,
+            p1_super_k, p1_fanout0, p1_super_k0)
+    kind = origin.device.type
+    if kind == "cuda":
+        return _tile_candidates_cuda(*args)
+    if kind == "cpu":
+        return _tile_candidates(*args)
+    raise ValueError(f"phase 1 runs on CUDA or CPU tensors, got {kind}")
 
 
 def mt_traverse(inp: TraversalInputs, shape: TraversalShape):
@@ -858,9 +977,11 @@ def closest_hit_clustered(
         direction = torch.cat([direction, z3], 1)
         tmin = torch.cat([tmin, torch.zeros(l_pad - l, dtype=f32, device=dev)])
     n_tiles = l_pad // rt
+    origin, direction, tmin = origin.contiguous(), direction.contiguous(), tmin.contiguous()
+    aabb_mn, aabb_mx = aabb_mn.contiguous(), aabb_mx.contiguous()
     if candidates > 0:
         with trace_annotation("rts.phase1"):
-            cand, meta, bits, ent = _tile_candidates(
+            cand, meta, bits, ent = tile_candidates(
                 origin, direction, tmin, aabb_mn, aabb_mx, rt, sub_tiles, candidates,
                 cand_order, p1_fanout, p1_super_k, p1_fanout0, p1_super_k0,
             )
@@ -881,8 +1002,7 @@ def closest_hit_clustered(
         live_pack = torch.zeros((16, 0), dtype=f32, device=dev)
         live_tab = torch.zeros((0,), dtype=i32, device=dev)
     inp = TraversalInputs(
-        origin.contiguous(), direction.contiguous(), tmin.contiguous(),
-        tri_pack, aabb_mn.contiguous(), aabb_mx.contiguous(),
+        origin, direction, tmin, tri_pack, aabb_mn, aabb_mx,
         g_mn.contiguous(), g_mx.contiguous(), s_mn.contiguous(), s_mx.contiguous(),
         s_order.contiguous(), g_order.contiguous(), cand, meta, bits, ent, shade_pack,
         live_pack, live_tab,

@@ -2,7 +2,10 @@
 (modes K1/K2, the K3 prune, the K4 shade emit, the K5 live pack and the K6
 per-candidate windows, and the work counters), at every mapping of ray
 sub-blocks onto the kernel's warps and blocks, and on exact ties: in the
-candidate windows and across clusters of the sweep's visit order.
+candidate windows and across clusters of the sweep's visit order.  Phase
+1's kernel (``csrc/phase1.cu``) against ``_tile_candidates`` on the CPU,
+element for element, at the shapes of the benchmark's cells and the bench's
+and at the kernel's edges, and through ``closest_hit_clustered``.
 
 Marked ``gpu``: skips where there is no CUDA card (the plain version's tie
 rule is also checked on the CPU, unmarked).  This file imports
@@ -467,3 +470,118 @@ def test_cuda_sweep_exact_tie_first_visited_wins(cuda_device, call, order, ray_t
     assert int(found.sum()) > ray_tile
     assert bool((ref[1][found] == (5 if order[0] == 0 else cs + 3)).all())
     _assert_bit_equal(got, ref)
+
+
+# Phase 1: (seed, box count, rays, ray_tile, sub_tiles, k_max, options).  The
+# first seven are tests/test_torch_traversal.py's test_phase1_bit_identical
+# cases; "level0*" force level 0 on through _P1_L0_MIN_S; "terrain_cell" and
+# "imaging_cell" are the benchmark cells' knobs on a box set big enough for
+# level 0 at the default threshold; "bench_moving" is bench.py's moving
+# shells' (kf = 32 x 16 = 512 member slots, k 128).
+_P1_CASES = {
+    "dense": (1, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=24)),
+    "list_padding": (2, 96, 256, 64, 4, 96, dict(p1_fanout=4, p1_super_k=24)),
+    "narrow_list": (3, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=3)),
+    "overflow": (4, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=2)),
+    "sentinels": (5, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=24)),
+    "mask_order": (6, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=24, cand_order="mask")),
+    "chunked": (7, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=24)),
+    "level0": (11, 96, 256, 64, 4, 64, dict(p1_fanout=2, p1_super_k=48)),
+    "level0_overflow": (11, 96, 256, 64, 4, 64, dict(p1_fanout=2, p1_super_k=48, p1_super_k0=1)),
+    "terrain_cell": (12, 2000, 2048, 512, 8, 48, dict(p1_fanout=8, p1_super_k=10)),
+    "imaging_cell": (13, 2000, 1024, 128, 2, 32, dict(p1_fanout=8, p1_super_k=10)),
+    "bench_moving": (14, 1280, 1024, 512, 8, 128, dict(p1_fanout=16, p1_super_k=32)),
+    "ray_tile32_sub_tiles32": (15, 96, 256, 32, 32, 64, dict(p1_fanout=4, p1_super_k=24)),
+    "ray_tile1024": (16, 400, 2048, 1024, 8, 64, dict(p1_fanout=4, p1_super_k=24)),
+    "nan": (17, 96, 256, 64, 4, 64, dict(p1_fanout=4, p1_super_k=24)),
+}
+
+
+def _p1_inputs(case):
+    """Random boxes and rays (axis-aligned, dead and boxed-in lanes among
+    them) as in test_phase1_bit_identical; "sentinels" ends the box list
+    with +inf rows; "nan" flattens boxes in x (plates) and puts every other
+    ray's origin on one, inside it in y and z, with a denormal x direction:
+    the slab's (mn - o) * (1 / d) and (mx - o) * (1 / d) are 0 * inf = NaN,
+    which misses the box where minima and maxima propagate NaN and, where
+    they drop it (fminf / fmaxf), leaves the x axis out and overlaps."""
+    seed, c, l, *_ = _P1_CASES[case]
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-300.0, 300.0, (c, 3)).astype(np.float32)
+    hi = lo + rng.uniform(1, 100, (c, 3)).astype(np.float32)
+    o = rng.uniform(-350.0, 350.0, (3, l)).astype(np.float32)
+    d = rng.normal(size=(3, l)).astype(np.float32)
+    d[1:, :16] = 0.0
+    d[:, -8:] = 0.0
+    o[:, 16:24] = 0.0
+    if case == "sentinels":
+        lo[-7:] = np.inf
+        hi[-7:] = np.inf
+    if case == "nan":
+        face = rng.integers(0, c, l // 2)
+        hi[face, 0] = lo[face, 0]
+        o[0, ::2] = lo[face, 0]
+        o[1:, ::2] = ((lo[face, 1:] + hi[face, 1:]) * 0.5).T
+        d[0, ::2] = np.float32(1e-45)
+    return o, d, np.full(l, 0.005, np.float32), lo, hi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_P1_CASES))
+def test_cuda_phase1_matches_plain(cuda_device, case, monkeypatch):
+    """cand/meta/bits/ent of the kernel equal _tile_candidates' on the CPU
+    (the version held to rts_tpu), element for element; one counted call."""
+    _, _, _, rt, st, k, kw = _P1_CASES[case]
+    if case.startswith("level0"):
+        monkeypatch.setattr(TCT, "_P1_L0_MIN_S", 8)
+    if case == "chunked":
+        monkeypatch.setattr(TCT, "_P1_CHUNK_ELEMS", rt * 96)  # one tile per chunk
+    cpu = [torch.as_tensor(a) for a in _p1_inputs(case)]
+    before = timing.counters().get("phase1.calls", 0)
+    got = TCT.tile_candidates(*(a.to(cuda_device) for a in cpu), rt, st, k, **kw)
+    torch.cuda.synchronize()
+    assert timing.counters().get("phase1.calls", 0) == before + 1
+    ref = TCT._tile_candidates(*cpu, rt, st, k, **kw)
+    meta = ref[1]
+    if case in ("overflow", "level0_overflow"):
+        assert meta[:, 1].any()
+    else:
+        assert meta[:, 0].max() > 2
+    if case.endswith("_cell"):  # level 0 at the default threshold
+        assert TCT.phase1_shape(cpu[0].shape[1], cpu[3].shape[0], rt, st, k, **kw).s0 > 0
+    for a, b, name in zip(got, ref, ("cand", "meta", "bits", "ent")):
+        assert torch.equal(a.cpu(), b), (case, name, (a.cpu() != b).sum().item())
+
+
+def _plain_phase1_on_cpu(*args, **kw):
+    """_tile_candidates on CPU copies of a CUDA call's operands, its
+    results back on the card."""
+    dev = args[0].device
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    return tuple(x.to(dev) for x in TCT._tile_candidates(*cpu, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", ["cells", "mask_level0"])
+def test_cuda_phase1_closest_hit_matches_plain_phase1(cuda_device, knobs, monkeypatch):
+    """closest_hit_clustered through the phase-1 kernel equals it with the
+    plain phase 1 (the same traversal kernel after it): tri, found and t
+    bit for bit."""
+    sc = _scene(cuda_device, subdiv=4)
+    rays = _mixed_rays(cuda_device, 3 * 512)
+    args = (*rays, sc.tri_pack, sc.aabb_mn, sc.aabb_mx, torch.zeros(3, device=cuda_device))
+    kw = dict(cluster_size=CS, ray_tile=512, group_size=8, super_size=1, sub_tiles=8,
+              candidates=48, mt_group=8, mt_tail=True, p1_fanout=8, p1_super_k=10)
+    if knobs == "mask_level0":
+        monkeypatch.setattr(TCT, "_P1_L0_MIN_S", 2)
+        kw.update(cand_order="mask", p1_fanout=2, p1_super_k=16)
+    before = timing.counters().get("phase1.calls", 0)
+    got = closest_hit_clustered(*args, **kw)
+    torch.cuda.synchronize()
+    assert timing.counters().get("phase1.calls", 0) == before + 1
+    monkeypatch.setattr(TCT, "tile_candidates", _plain_phase1_on_cpu)
+    ref = closest_hit_clustered(*args, **kw)
+    assert int(ref.found.sum()) > 200
+    for name in ("tri", "found", "t"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert torch.equal(a, b), (knobs, name, (a != b).sum().item())

@@ -3,7 +3,9 @@
 ``world(config, traffic, seed)`` builds the ``rts_tpu_torch.sim.World``
 and ``Parameters`` that a configuration file describes, its terrain drawn
 from ``seed``; ``prepare(...)`` hands them to ``prepare_cpi`` with the
-file's options.  The reference reads the same file on its own.
+file's options.  It refuses, by name, a key of the transmitter, a
+receiver, a target, its terrain or the params that it does not pass on.
+The reference reads the same file on its own.
 """
 
 from __future__ import annotations
@@ -21,6 +23,22 @@ def load(kind: str, name: str) -> dict:
     return json.loads((ROOT / kind / f"{name}.json").read_text())
 
 
+# the keys the adapter passes on, by part; any other key is refused, so that
+# a configuration file carries no number the program never sees
+TX_KEYS = {"position", "azimuth", "elevation", "carrier", "chirp_rate", "pulse_length", "prf", "tx_span"}
+RX_KEYS = {"position", "azimuth", "elevation", "sphere"}
+TARGET_KEYS = {"shape", "path", "attitude", "refl_coeff", "refr_index"}
+SHAPE_KEYS = {"terrain": "terrain", "rect": "rect", "sphere": "sphere_params"}
+TERRAIN_KEYS = {"n", "extent", "peak"}  # its seed is the run's
+PARAM_KEYS = {"max_refl_depth", "max_refr_depth", "c", "cw_sample_rate"}
+
+
+def _refuse_unknown(part: dict, known: set, where: str) -> None:
+    extra = sorted(set(part) - known)
+    if extra:
+        raise ValueError(f"{where}: the adapter does not pass {', '.join(map(repr, extra))} to the program")
+
+
 def world(config: dict, traffic: dict, seed: int):
     """(World, Parameters) of ``config`` with ``traffic``'s pulses and fan."""
     from rts_tpu_torch import Parameters
@@ -33,6 +51,7 @@ def world(config: dict, traffic: dict, seed: int):
         return Path.linear([(t, tuple(p)) for t, p in waypoints])
 
     tx = config["transmitter"]
+    _refuse_unknown(tx, TX_KEYS, "transmitter")
     w = World()
     w.add(Transmitter(
         path=Path.fixed(*tx["position"]),
@@ -40,21 +59,28 @@ def world(config: dict, traffic: dict, seed: int):
         wave=RadarSignal(carrier=tx["carrier"], chirp_rate=tx["chirp_rate"], length=tx["pulse_length"]),
         pulse_count=int(traffic["pulses"]), prf=tx["prf"], tx_span=tuple(tx["tx_span"]),
     ))
-    for rx in config["receivers"]:
+    for k, rx in enumerate(config["receivers"]):
+        _refuse_unknown(rx, RX_KEYS, f"receiver {k}")
         w.add(Receiver(path=Path.fixed(*rx["position"]),
                        rotation=RotationPath(azimuth=rx["azimuth"], elevation=rx["elevation"]),
                        sphere=tuple(rx["sphere"])))
-    for t in config["targets"]:
-        att = AttitudePath(**t.get("attitude", {}))
+    for k, t in enumerate(config["targets"]):
+        if t["shape"] not in SHAPE_KEYS:
+            raise ValueError(f"target {k}: unknown shape {t['shape']!r}")
+        key = SHAPE_KEYS[t["shape"]]
+        _refuse_unknown(t, TARGET_KEYS | {key}, f"target {k} ({t['shape']})")
         if t["shape"] == "terrain":
             g = t["terrain"]
+            _refuse_unknown(g, TERRAIN_KEYS, f"target {k} (terrain)")
             shape = dict(terrain=(int(g["n"]), float(g["extent"]), float(g["peak"]), int(seed)))
         elif t["shape"] == "rect":
             shape = dict(rect=tuple(t["rect"]))
         else:
-            raise ValueError(f"unknown target shape {t['shape']!r}")
-        w.add(Target(shape=t["shape"], path=path(t["path"]), attitude=att, refl_coeff=t["refl_coeff"], **shape))
+            shape = dict(sphere_params=(int(t[key][0]), float(t[key][1])))
+        w.add(Target(shape=t["shape"], path=path(t["path"]), attitude=AttitudePath(**t.get("attitude", {})),
+                     refl_coeff=t["refl_coeff"], refr_index=float(t.get("refr_index", 1.0)), **shape))
     p = config["params"]
+    _refuse_unknown(p, PARAM_KEYS, "params")
     params = Parameters(num_rays=int(traffic["num_rays"]), max_refl_depth=int(p["max_refl_depth"]),
                         max_refr_depth=int(p["max_refr_depth"]), c=float(p["c"]),
                         cw_sample_rate=float(p["cw_sample_rate"]))

@@ -167,7 +167,8 @@ class Scene:
     corners: np.ndarray  # [T, 3, 3] at the t=0 attitude, target-centred
     normals: np.ndarray  # [T, 3, 3] corner normals
     target: np.ndarray  # [T] target index
-    refl: np.ndarray  # [NT]
+    refl: np.ndarray  # [NT] reflection coefficients
+    refr: np.ndarray  # [NT] refractive indices (1.0 unless the file gives one)
     paths: list  # per target, its waypoint path
     tx: dict
     rx: list
@@ -187,7 +188,9 @@ class Scene:
 
 def build_scene(config: dict, seed: int) -> Scene:
     """The scene a configuration file describes, with its terrain drawn from
-    ``seed``.  Targets keep a fixed attitude (no rotation rates)."""
+    ``seed``.  Targets keep a fixed attitude (no rotation rates).  The
+    tracer's refraction cap is 0 (reflections only) or 2 (a chain refracts
+    into a target and out of it again)."""
     corners, normals, target = [], [], []
     for j, t in enumerate(config["targets"]):
         att = t.get("attitude", {})
@@ -204,11 +207,12 @@ def build_scene(config: dict, seed: int) -> Scene:
         normals.append(nrm)
         target.append(np.full(len(c), j))
     params = config["params"]
-    if params.get("max_refr_depth", 0):
-        raise ValueError("the reference traces reflections only (max_refr_depth 0)")
+    if int(params.get("max_refr_depth", 0)) not in (0, 2):
+        raise ValueError(f"max_refr_depth is 0 or 2 in the tracer, not {params['max_refr_depth']!r}")
     return Scene(
         corners=np.concatenate(corners), normals=np.concatenate(normals), target=np.concatenate(target),
         refl=np.array([float(t["refl_coeff"]) for t in config["targets"]]),
+        refr=np.array([float(t.get("refr_index", 1.0)) for t in config["targets"]]),
         paths=[t["path"] for t in config["targets"]], tx=config["transmitter"],
         rx=[capture_sphere(r["position"], r["azimuth"], r["elevation"], r["sphere"]) for r in config["receivers"]],
         params=params, sample_time=1.0 / float(params["cw_sample_rate"]),

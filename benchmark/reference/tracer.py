@@ -4,8 +4,15 @@ A straightforward wavefront tracer in plain PyTorch, written from the
 radar tracer's published semantics (ray generation, closest hit with the
 double Moller-Trumbore test, reflection with smooth normals, capture by
 the receivers' spheres and windows, the Earth-sphere termination, the
-post-processing and the coherent multipath aggregation).  It reflects
-only (no refraction) and takes isotropic antennas and isotropic RCS.
+post-processing and the coherent multipath aggregation).  It takes
+isotropic antennas and isotropic RCS.
+
+With refraction on (``max_refr_depth`` 2) it keeps the tracer's static
+slot layout: a chain's refracted child lives one slot (N^3 lanes) below
+it, so the primaries fill [0, N^3), the chains trapped in a target after
+their first refraction [N^3, 2N^3), and the chains that refracted out of
+it again [2N^3, 3N^3).  The result is ``max_refl_depth + 3`` slots wide,
+as the tracer's ray buffer is; the slots past the third are never traced.
 
 To stay fast it finds each ray's candidate triangles through boxes of
 its own: each target's triangles are sorted by a Morton code of their
@@ -48,6 +55,7 @@ class Lanes(NamedTuple):
     ray_length: torch.Tensor
     refl_depth: torch.Tensor
     path: torch.Tensor  # [R, D] target of each recorded hit, -1 empty
+    refr_depth: torch.Tensor  # refractions the lane's chain took (0, 1, 2)
 
 
 class Aggregate(NamedTuple):
@@ -96,6 +104,7 @@ class Geometry:
         self.normals = f64(scene.normals)
         self.target = t(scene.target)
         self.refl = f64(scene.refl)
+        self.refr = f64(scene.refr)
         self.block_target = self.target[self.block_tris[:, 0]]
         self.group_target = self.block_target[self.group_blocks[:, 0]]
         self.p0, self.e0, self.e1 = c[:, 0], c[:, 1] - c[:, 0], c[:, 0] - c[:, 2]
@@ -256,38 +265,62 @@ def _capture(sph, o, d, ray_length):
     return ok[0] | ok[1], root
 
 
+def _refract(i, n, ratio):
+    """OptiX ``refract`` of unit ``i`` at unit normal ``n`` [R, 3] with the
+    index ratio ``ratio`` [R]: a hit from behind (i . n > 0) flips the
+    normal and takes the ratio as it is, a hit from the front its inverse.
+    Returns (unit direction, ok); ok is False under total internal
+    reflection (k < 0)."""
+    ndotv = (i * n).sum(-1)
+    behind = ndotv > 0.0
+    eta = torch.where(behind, ratio, 1.0 / ratio)
+    nn = torch.where(behind[:, None], -n, n)
+    cos = torch.where(behind, -ndotv, ndotv)
+    k = 1.0 - eta * eta * (1.0 - cos * cos)
+    r = eta[:, None] * i - (eta * cos + torch.sqrt(torch.clamp(k, min=0.0)))[:, None] * nn
+    return _norm(r), k >= 0.0
+
+
 def trace_pulse(geo: Geometry, scene: Scene, num_rays: int, pos, vel, rx_pos) -> Lanes:
     """Every lane of one pulse, with the targets at ``pos`` moving at
     ``vel`` ([NT, 3]) and the receivers at ``rx_pos`` ([NR, 3])."""
     dev, dt = geo.device, geo.dtype
     tx = scene.tx
     max_refl = int(scene.params["max_refl_depth"]) + 1  # the tracer's stop index
-    depth = max_refl - 1
+    max_refr = int(scene.params.get("max_refr_depth", 0))  # 0, or 2 with refraction
+    depth = max_refl - 1 + max_refr  # path columns, indexed by refl_depth + refr_depth
+    slots = 3 if max_refr else 1  # primaries, then the trapped and the exiting chains
     dirs_all = fan_directions(num_rays, tx["azimuth"], tx["elevation"], tx["tx_span"])
     dirs, inverse = np.unique(dirs_all, axis=0, return_inverse=True)
-    r = len(dirs)
+    u = len(dirs)
+    r = slots * u  # lane s * u + j: fan direction j in slot s
     f = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dt, device=dev)
     tris, boxes = geo.pose(pos)
     v_t = f(vel)
-    refl = geo.refl.to(dt)
+    refl, refr = geo.refl.to(dt), geo.refr.to(dt)
     txo = f(tx["position"])
     o = txo.expand(r, 3).clone()
-    d = f(dirs)
+    d = f(dirs).repeat(slots, 1)  # a child's slot is written over when it is born
     ray_dir = _norm(d)
     tmin = torch.full((r,), SCENE_EPS, dtype=dt, device=dev)
+    # A slot that no chain is born into keeps what the tracer's zero-filled
+    # buffers hold (and the program documents as its output there): not
+    # received, zero power, length and Doppler.
     zeros = torch.zeros(r, dtype=dt, device=dev)
     ray_length, power, doppler = zeros.clone(), zeros.clone(), zeros.clone()
-    first_hit = torch.zeros((r, 3), dtype=dt, device=dev)
+    refr_cur = torch.ones(r, dtype=dt, device=dev)  # the index the chain travels in
     refl_depth = torch.zeros(r, dtype=torch.int64, device=dev)
+    refr_depth = torch.zeros(r, dtype=torch.int64, device=dev)
     received = torch.full((r,), -1, dtype=torch.int64, device=dev)
     path = torch.full((r, depth), -1, dtype=torch.int64, device=dev)
     end = torch.zeros(r, dtype=torch.bool, device=dev)
-    active = torch.ones(r, dtype=torch.bool, device=dev)
+    active = torch.arange(r, device=dev) < u
     four_pi = 4.0 * math.pi
     while bool(active.any()):
         found, t, tri, beta, gamma = closest_hit(geo, tris, boxes, o, d, tmin, active)
         t, beta, gamma = t.to(dt), beta.to(dt), gamma.to(dt)
         miss = active & ~found
+        direct = (refl_depth == 0) & (refr_depth == 0)
         if bool(miss.any()):
             open_ = miss & ~end
             for k, sph in enumerate(scene.rx):
@@ -295,7 +328,6 @@ def trace_pulse(geo: Geometry, scene: Scene, num_rays: int, pos, vel, rx_pos) ->
                 got = got & open_
                 end = end | got
                 end_point = o + ti[:, None] * d
-                direct = refl_depth == 0
                 rr = torch.where(direct[:, None], end_point - txo, end_point - o)
                 far = torch.linalg.vector_norm(rr, dim=-1) >= SCENE_EPS
                 take = got & far
@@ -314,34 +346,65 @@ def trace_pulse(geo: Geometry, scene: Scene, num_rays: int, pos, vel, rx_pos) ->
                 ok = earth & (disc > 0) & (ti >= 0) & (ray_length > 0)
                 end = end | ok
                 ray_length = torch.where(ok, ray_length + ti, ray_length)
-        gate = active & found & ~end & (refl_depth < max_refl - 1)
+        # a hit is shaded while the chain may still refract or reflect
+        gate = active & found & ~end & ((refr_depth < max_refr) | (refl_depth < max_refl - 1))
         active = gate
         if not bool(gate.any()):
             break
         targ = geo.target[tri.clamp(min=0)]
-        col = refl_depth.clamp(max=depth - 1)
-        path = torch.where(gate[:, None] & (torch.arange(depth, device=dev) == col[:, None]),
+        col = refl_depth + refr_depth
+        rec = gate & (refr_depth != 1) & (col < depth)  # a trapped chain's row is written at its birth
+        path = torch.where(rec[:, None] & (torch.arange(depth, device=dev) == col[:, None]),
                            targ[:, None], path)
         hit_point = o + t[:, None] * d
         ray_length = torch.where(gate, ray_length + t, ray_length)
-        first = refl_depth == 0
-        leg = torch.where(first[:, None], hit_point - txo, hit_point - o)
+        leg = torch.where(direct[:, None], hit_point - txo, hit_point - o)
         far = torch.linalg.vector_norm(leg, dim=-1) >= SCENE_EPS
         inv = 1.0 / ((leg * leg).sum(-1) * four_pi)
-        power = torch.where(gate & far, torch.where(first, inv, power * inv), power)
+        power = torch.where(gate & far, torch.where(direct, inv, power * inv), power)
         end = end | (gate & ~far)
-        first_hit = torch.where((gate & first)[:, None], hit_point, first_hit)
-        o = torch.where(gate[:, None], hit_point, o)
         cn = geo.normals[tri.clamp(min=0)].to(dt)  # [R, 3 corners, 3]
         w0 = 1.0 - beta - gamma
         normal = _norm(cn[:, 1] * beta[:, None] + cn[:, 2] * gamma[:, None] + cn[:, 0] * w0[:, None])
+        rc = refl[targ]
+        born = None
+        if max_refr:
+            # a chain's first hit, before it reflected, on a target that does
+            # not reflect all: the refracted share goes on one slot down
+            # (total internal reflection spawns nothing); the index it
+            # enters is the target's from outside, 1 from inside
+            can = gate & (rc.abs() != 1.0) & (refr_depth < max_refr) & (refl_depth == 0)
+            into = torch.where(refr_cur == 1.0, refr[targ], 1.0)
+            bent, ok = _refract(ray_dir, normal, into / refr_cur)
+            spawn = can & ok
+            share = power * (1.0 - rc.abs()) if max_refl > 1 else power
+            # the child's (o, d, ray_dir, tmin, ray_length, power, doppler,
+            # refr_cur, refl_depth, refr_depth, end), from before the reflection
+            child = (hit_point, bent, bent, torch.full_like(tmin, SCENE_EPS), ray_length, share,
+                     doppler + (v_t[targ] * (_norm(bent) - _norm(d))).sum(-1), into, refl_depth,
+                     refr_depth + 1, end)
+            born = torch.roll(spawn, u, 0)
+            # a primary's spawn writes the rows of its trapped child (every
+            # column) and of its exiting grandchild (the first two)
+            prim = torch.roll(spawn & (refr_depth == 0), u, 0)
+            path = torch.where(prim[:, None], torch.roll(targ, u, 0)[:, None], path)
+            prim2 = torch.roll(prim, u, 0)[:, None] & (torch.arange(depth, device=dev) < 2)
+            path = torch.where(prim2, torch.roll(targ, 2 * u, 0)[:, None], path)
+        o = torch.where(gate[:, None], hit_point, o)
         refl_depth = torch.where(gate, refl_depth + 1, refl_depth)
+        reflects = gate & (refl_depth < max_refl)
         new_dir = ray_dir - 2.0 * normal * (ray_dir * normal).sum(-1, keepdim=True)
-        power = torch.where(gate, power * refl[targ], power)
-        doppler = torch.where(gate, doppler + (v_t[targ] * (_norm(new_dir) - _norm(d))).sum(-1), doppler)
-        d = torch.where(gate[:, None], new_dir, d)
-        ray_dir = torch.where(gate[:, None], new_dir, ray_dir)
-        tmin = torch.where(gate, SCENE_EPS, tmin)
+        power = torch.where(reflects, power * rc, power)
+        doppler = torch.where(reflects, doppler + (v_t[targ] * (_norm(new_dir) - _norm(d))).sum(-1), doppler)
+        d = torch.where(reflects[:, None], new_dir, d)
+        ray_dir = torch.where(reflects[:, None], new_dir, ray_dir)
+        tmin = torch.where(reflects, SCENE_EPS, tmin)
+        active = reflects
+        if born is not None:  # the children land one slot down, born active
+            own = (o, d, ray_dir, tmin, ray_length, power, doppler, refr_cur, refl_depth, refr_depth, end)
+            o, d, ray_dir, tmin, ray_length, power, doppler, refr_cur, refl_depth, refr_depth, end = (
+                torch.where(born.view(-1, *[1] * (x.dim() - 1)), torch.roll(c, u, 0), x) for c, x in zip(child, own))
+            active = active | born
     # post-processing: isotropic gains and RCS, lambda^2, relativistic Doppler
     c = float(scene.params["c"])
     carrier = float(tx["carrier"])
@@ -351,9 +414,18 @@ def trace_pulse(geo: Geometry, scene: Scene, num_rays: int, pos, vel, rx_pos) ->
     x = (doppler / 2.0) / c
     doppler = torch.where(valid, carrier * (2.0 * x / (1.0 - x)), doppler)
     back = torch.as_tensor(inverse.reshape(-1), device=dev)
-    g = lambda a: a[back].double() if a.is_floating_point() else a[back]
-    return Lanes(received=g(received), power=g(power), doppler=g(doppler), delay=g(ray_length) / c,
-                 ray_length=g(ray_length), refl_depth=g(refl_depth), path=g(path))
+    n3 = back.numel()
+    back = torch.cat([s * u + back for s in range(slots)])
+    # the slots past the traced ones (max_refl_depth + 3 in all with
+    # refraction) are never traced: the zero fill, path rows empty
+    pad = (max_refl - 1) * n3 if max_refr else 0
+    g = lambda a, fill: torch.cat([a[back].double() if a.is_floating_point() else a[back],
+                                   torch.full((pad,) + a.shape[1:], fill, dtype=torch.float64 if
+                                              a.is_floating_point() else a.dtype, device=dev)])
+    ray_length = g(ray_length, 0.0)
+    return Lanes(received=g(received, -1), power=g(power, 0.0), doppler=g(doppler, 0.0), delay=ray_length / c,
+                 ray_length=ray_length, refl_depth=g(refl_depth, 0), path=g(path, -1),
+                 refr_depth=g(refr_depth, 0))
 
 
 def aggregate(lanes: Lanes, carrier: float, c: float) -> Aggregate:
@@ -372,7 +444,7 @@ def aggregate(lanes: Lanes, carrier: float, c: float) -> Aggregate:
     idx = torch.nonzero(lanes.received >= 0).reshape(-1)
     if idx.numel():
         rx, pth = lanes.received[idx], lanes.path[idx]
-        direct = lanes.refl_depth[idx] == 0
+        direct = (lanes.refl_depth[idx] == 0) & (lanes.refr_depth[idx] == 0)
         same = (rx[:, None] == rx[None, :]) & (direct[:, None] | (pth[:, None, :] == pth[None, :, :]).all(-1))
         w = same.double()
         n = w.sum(1)

@@ -15,8 +15,15 @@ Reads ``BENCHMARK.json`` at the checkout's root, the cell's configuration
   median CPI time so far fits in what remains of ``--seconds``, the first
   always;
 * with ``--trace 1``, ``profile_pulses`` pulses of the same CPI under
-  ``torch.profiler`` (the traversal calls captured), read by the readers
-  in ``benchmark/metrics/`` that ``BENCHMARK.json`` lists for the cell;
+  ``torch.profiler`` (the traversal calls captured, the program's counters
+  reset before and read after), read by the readers in
+  ``benchmark/metrics/`` that ``BENCHMARK.json`` lists for the cell; on
+  standard error a ``# layers:`` line (``benchmark.spans.layers``, rank
+  0's: each span's calls, host self ms, aten operators, device busy ms of
+  what it launched and device idle ms inside it, a pulse), a
+  ``# counters:`` line and a ``# clock:`` line (the bounds on the device
+  clock's offset from the host's; on a split, each rank's device ms under
+  ``rts.gather.pulse``);
 * the check: the last CPI, and every CPI of the window by fingerprint,
   against the plain reference (``benchmark/reference``, ``benchmark/check``).
 
@@ -105,6 +112,13 @@ class Record:
     stretch_ns: tuple = (0, 0)
     traversal_calls: list = dataclasses.field(default_factory=list)
     render_s: list = dataclasses.field(default_factory=list)
+    window_s: float = 0.0  # the window's seconds, first CPI's start to last CPI's end
+    cpis: int = 0  # the window's CPIs
+    spans: list = dataclasses.field(default_factory=list)  # the program's rts.* (name, start_ns, end_ns)
+    launches: list = dataclasses.field(default_factory=list)  # per device event: its launch's start_ns, or None
+    counters: dict = dataclasses.field(default_factory=dict)  # rts_tpu_torch.utils.timing.counters()
+    skew: dict = dataclasses.field(default_factory=dict)  # spans.skew_bounds: the device clock's offset
+    gather_ms: list = dataclasses.field(default_factory=list)  # per rank: device ms under rts.gather.pulse
 
 
 def _tree(fn, x):
@@ -241,37 +255,65 @@ class _Capture:
         self.mod.closest_hit_clustered = self.orig
 
 
-def _events(prof):
-    """(host aten events, device events, stretch) from the profiler's raw
-    events, as (name, start_ns, end_ns)."""
+def _runtime(name: str) -> bool:
+    """Whether a host event of the profiler's is a call into the CUDA API
+    (``cudaLaunchKernel``, ``cuLaunchKernel``, a copy, a synchronisation),
+    told by its name: some builds give the events no activity type."""
+    return name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper())
+
+
+def _events(prof) -> dict:
+    """The profiler's raw events, read once, as (name, start_ns, end_ns):
+    ``host`` the aten operators, ``device`` the device events, ``stretch``
+    the ``benchmark.stretch`` region, ``spans`` the program's ``rts.*``
+    regions; ``launches``, for each device event, the start of the runtime
+    call that launched it (failing that, of the operator it is linked to),
+    None where the profiler recorded neither; and, for the clocks' offset,
+    ``ids`` each device event's correlation id and ``calls`` the runtime
+    calls as (name, start_ns, end_ns, correlation id)."""
     from torch.autograd import DeviceType
 
-    raw = prof.profiler.kineto_results.events()
-    host, device, stretch = [], [], (0, 0)
-    for e in raw:
+    out = dict(host=[], device=[], stretch=(0, 0), spans=[], ids=[], calls=[])
+    runtime, ops, links = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
         name = e.name()
         s = e.start_ns() if hasattr(e, "start_ns") else 1000 * e.start_us()
         d = e.duration_ns() if hasattr(e, "duration_ns") else 1000 * e.duration_us()
         if e.device_type() == DeviceType.CUDA:
             if name != "benchmark.stretch" and not (hasattr(e, "is_user_annotation") and e.is_user_annotation()):
-                device.append((name, s, s + d))
-        elif name == "benchmark.stretch":
-            stretch = (s, s + d)
-        elif name.startswith("aten::"):
-            host.append((name, s, s + d))
-    return host, device, stretch
+                out["device"].append((name, s, s + d))
+                out["ids"].append(e.correlation_id())
+                links.append(e.linked_correlation_id())
+        elif _runtime(name):
+            runtime[e.correlation_id()] = s
+            out["calls"].append((name, s, s + d, e.correlation_id()))
+        else:
+            ops[e.correlation_id()] = s
+            if name == "benchmark.stretch":
+                out["stretch"] = (s, s + d)
+            elif name.startswith("aten::"):
+                out["host"].append((name, s, s + d))
+            elif name.startswith("rts."):
+                out["spans"].append((name, s, s + d))
+    out["launches"] = [runtime.get(c, ops.get(linked) if linked else None) for c, linked in zip(out["ids"], links)]
+    return out
 
 
 def profile(prog: Program, record: Record, barrier=None):
     """``profile_pulses`` pulses of the CPI (each rank's share of that many
-    pulses a rank) under the profiler, the traversal calls captured."""
+    pulses a rank) under the profiler, the traversal calls captured, the
+    program's counters reset before and read after."""
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
+
+    from benchmark.spans import skew_bounds
+    from rts_tpu_torch.utils import timing
 
     n = int(prog.cell.traffic["profile_pulses"])
     shards = prog.mesh.size(0) if prog.mesh is not None else 1
     batch = prog.pulses(n * shards)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if prog.dev.type == "cuda" else [])
+    timing.reset()
     with _Capture() as cap:
         if barrier:
             barrier()
@@ -279,10 +321,16 @@ def profile(prog: Program, record: Record, barrier=None):
             with record_function("benchmark.stretch"):
                 prog.trace(batch)
                 _sync(prog.dev)
-    record.host_events, record.device_events, record.stretch_ns = _events(prof)
-    lo, hi = record.stretch_ns
-    record.device_events = [ev for ev in record.device_events if ev[2] > lo and ev[1] < hi]
-    record.host_events = [ev for ev in record.host_events if lo <= ev[1] < hi]
+    record.counters = timing.counters()
+    ev = _events(prof)
+    lo, hi = record.stretch_ns = ev["stretch"]
+    record.spans = [sp for sp in ev["spans"] if lo <= sp[1] < hi]
+    record.skew = skew_bounds([dv + (c,) for dv, c in zip(ev["device"], ev["ids"])], ev["calls"],
+                              [(s, e) for name, s, e in record.spans if name == "rts.pulse"])
+    kept = [k for k, dv in enumerate(ev["device"]) if dv[2] > lo and dv[1] < hi]
+    record.device_events = [ev["device"][k] for k in kept]
+    record.launches = [ev["launches"][k] for k in kept]
+    record.host_events = [h for h in ev["host"] if lo <= h[1] < hi]
     record.host_ops = len(record.host_events)
     record.pulses = n
     record.traversal_calls = cap.calls
@@ -291,29 +339,20 @@ def profile(prog: Program, record: Record, barrier=None):
 def breakdown(record: Record) -> dict:
     """The ten device operations that took most time, and the ten longest
     idle gaps of the device, each named by the host operator that overlaps
-    it most."""
+    it most and the span open at that operator's start
+    (``spans.named_gaps``); where the host's and the device's clocks
+    crossed on some pulse (``spans.skew_bounds``), the gaps are measured
+    but not named."""
+    from benchmark.spans import named_gaps
+
     ops = {}
     for name, s, e in record.device_events:
         ops[name] = ops.get(name, 0.0) + (e - s) * 1e-9
-    lo, hi = record.stretch_ns
-    gaps, reach = [], lo
-    for _, s, e in sorted((ev for ev in record.device_events), key=lambda ev: ev[1]):
-        if s > reach:
-            gaps.append((reach, s))
-        reach = max(reach, e)
-    if hi > reach:
-        gaps.append((reach, hi))
-    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:10]
-    named = []
-    for g0, g1 in gaps:
-        best, label = 0, "host (no aten operator)"
-        for name, s, e in record.host_events:
-            ov = min(e, g1) - max(s, g0)
-            if ov > best:
-                best, label = ov, name
-        named.append([label, (g1 - g0) * 1e-9])
+    gaps = named_gaps(record)
+    if record.skew.get("crossed"):
+        gaps = [[f"(not named: the clocks crossed on {record.skew['crossed']} pulses)", g] for _, g in gaps]
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_ops": [[k[:160], v] for k, v in top], "idle_gaps": named}
+    return {"device_ops": [[k[:160], v] for k, v in top], "idle_gaps": gaps}
 
 
 def check(cell: Cell, seed: int, out, rmap, prints, dev) -> tuple:
@@ -362,25 +401,28 @@ def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, mesh=None,
         peak = torch.cuda.max_memory_allocated(dev)
     else:
         peak = 0
-    record = Record(prepare_s=prog.prepare_s, render_s=render_s)
+    record = Record(prepare_s=prog.prepare_s, render_s=render_s, window_s=t1 - t0, cpis=len(times))
     busy = window_ns = 0
+    exchange = None
     if trace:
         from benchmark.readers import busy_ns
+        from benchmark.spans import launched_busy_ms
 
         profile(prog, record, barrier)
         busy, window_ns = busy_ns(record), record.stretch_ns[1] - record.stretch_ns[0]
+        exchange = launched_busy_ms(record, "rts.gather.pulse")
     if mesh is not None:
         gathered = [None] * torch.distributed.get_world_size()
-        torch.distributed.all_gather_object(gathered, (peak, busy, window_ns))
+        torch.distributed.all_gather_object(gathered, (peak, busy, window_ns, exchange))
         peak = max(g[0] for g in gathered)
         busy = sum(g[1] for g in gathered) / len(gathered)
         window_ns = sum(g[2] for g in gathered) / len(gathered)
+        record.gather_ms = [g[3] for g in gathered]
     if rank != 0:
         return None
     metrics = {}
-    window_s = t1 - t0
-    n_cpi = len(times)
-    values = {"setup_s": setup_s, "cpi_s": window_s / n_cpi,
+    window_s, n_cpi = record.window_s, record.cpis
+    values = {"setup_s": setup_s, "peak_mem_gb": peak / 1e9,
               "rays_per_s": int(cell.traffic["num_rays"]) ** 3 * int(cell.traffic["pulses"]) * n_cpi / window_s}
     if not trace:
         for m in cell.end_to_end:
@@ -395,8 +437,14 @@ def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, mesh=None,
                          "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type,
                          "count": cell.chips, "memory_peak_bytes": int(peak)}}
     if trace:
+        from benchmark.spans import clock_check, layers
+
         result["device"].update(busy_s=busy * 1e-9, window_s=window_ns * 1e-9)
         result["breakdown"] = breakdown(record)
+        print("# layers: " + json.dumps(layers(record)), file=sys.stderr)
+        print("# counters: " + json.dumps(record.counters), file=sys.stderr)
+        print("# clock: " + json.dumps({**clock_check(record), **record.skew, "gather_ms": record.gather_ms}),
+              file=sys.stderr, flush=True)
     print(f"# set-up parts: start to here {t_ready - t_start:.3f} s (imports, the card's context, ranks "
           f"spawned), prepare_cpi with its world {t_prep - t_ready:.3f} s, warm-up (kernel build "
           f"or load, {cell.traffic['warm_pulses']} pulses a rank, allocator, map) {t_warm - t_prep:.3f} s",

@@ -15,65 +15,20 @@ id; failing that, the host operator it is linked to), a host operator to
 the innermost span open at its start.  A span's self time is its duration
 less what its child spans cover.
 
-The readers take a ``SpanRecord``: ``benchmark.run.Record`` with the
-spans, each device event's launch time, the program's counters and, on
-rank 0 of a split, each rank's device time under ``rts.gather.pulse``.
-Each returns None where the record holds no such span.
+The readers take the traced run's ``benchmark.run.Record``: its spans,
+each device event's launch time, the program's counters and, on rank 0 of
+a split, each rank's device time under ``rts.gather.pulse``.  Each returns
+None where the record holds no such span.
 """
 
 from __future__ import annotations
 
 import bisect
-import dataclasses
 
 from benchmark.readers import union_ns
-from benchmark.run import Record
 
-PREFIX = "rts."
 NO_SPAN = "(no span)"
 UNLINKED = "(unlinked)"
-
-
-@dataclasses.dataclass
-class SpanRecord(Record):
-    spans: list = dataclasses.field(default_factory=list)  # rts.* (name, start_ns, end_ns)
-    launches: list = dataclasses.field(default_factory=list)  # per device event: its launch's start_ns, or None
-    counters: dict = dataclasses.field(default_factory=dict)  # rts_tpu_torch.utils.timing.counters()
-    skew: dict = dataclasses.field(default_factory=dict)  # clock_skew: the device clock's offset, bounded
-    gather_ms: list = dataclasses.field(default_factory=list)  # per rank: launched_busy_ms(.., "rts.gather.pulse")
-
-
-def span_events(prof):
-    """(spans, device events, launches) from the profiler's raw events: the
-    host's ``rts.*`` regions as (name, start_ns, end_ns); the device events
-    as ``benchmark.run._events`` keeps them, in its order; for each of those
-    the start of the runtime call that launched it (or of the operator it
-    is linked to), None where the profiler recorded neither."""
-    from torch.autograd import DeviceType
-
-    runtime, ops, spans, device, links = {}, {}, [], [], []
-    for e in prof.profiler.kineto_results.events():
-        name, s = e.name(), e.start_ns()
-        if e.device_type() == DeviceType.CUDA:
-            if name != "benchmark.stretch" and not e.is_user_annotation():
-                device.append((name, s, s + e.duration_ns()))
-                links.append((e.correlation_id(), e.linked_correlation_id()))
-        elif _runtime(e):
-            runtime[e.correlation_id()] = s
-        else:
-            ops[e.correlation_id()] = s
-            if name.startswith(PREFIX):
-                spans.append((name, s, s + e.duration_ns()))
-    launches = [runtime.get(c, ops.get(linked) if linked else None) for c, linked in links]
-    return spans, device, launches
-
-
-def _runtime(e) -> bool:
-    """Whether a host event of the profiler's is a call into the CUDA API
-    (``cudaLaunchKernel``, ``cuLaunchKernel``, a copy, a synchronisation),
-    told by its name: some builds give the events no activity type."""
-    name = e.name()
-    return name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper())
 
 
 def partition(spans) -> list:
@@ -121,9 +76,8 @@ class _Lookup:
 
 
 def _spans(record):
-    spans = getattr(record, "spans", None)
     lo, hi = record.stretch_ns
-    return [sp for sp in spans or () if lo <= sp[1] < hi]
+    return [sp for sp in record.spans if lo <= sp[1] < hi]
 
 
 def _gaps(record) -> list:
@@ -199,9 +153,10 @@ def layers(record) -> dict | None:
 
 
 def named_gaps(record) -> list:
-    """``benchmark.run.breakdown``'s idle gaps, each label prefixed with the
-    innermost span open at the start of the host operator that names it
-    (``rts.phase1/aten::where``); the lengths and their order as there."""
+    """The ten longest idle gaps of the device inside the stretch, longest
+    first, each named by the host operator that overlaps it most, prefixed
+    with the innermost span open at that operator's start
+    (``rts.phase1/aten::where``; the operator alone outside every span)."""
     where = _Lookup(_spans(record))
     gaps = sorted(_gaps(record), key=lambda g: g[0] - g[1])[:10]
     named = []
@@ -210,7 +165,8 @@ def named_gaps(record) -> list:
         for name, s, e in record.host_events:
             ov = min(e, g1) - max(s, g0)
             if ov > best:
-                best, label = ov, f"{where(s)}/{name}"
+                span = where(s)
+                best, label = ov, name if span == NO_SPAN else f"{span}/{name}"
         named.append([label, (g1 - g0) * 1e-9])
     return named
 
@@ -255,10 +211,6 @@ def launched_busy_ms(record, name):
     return union_ns(iv for iv in ivs if iv[1] > iv[0]) * 1e-6
 
 
-def phase1_ms(record):
-    return span_ms(record, "rts.phase1")
-
-
 def phase1_busy_ms(record):
     busy = launched_busy_ms(record, "rts.phase1")
     return None if busy is None or not record.pulses else busy / record.pulses
@@ -279,14 +231,14 @@ def post_ms(record):
 def exchange_ms(record):
     """The least of the ranks' device ms under ``rts.gather.pulse``: the rank
     that arrives last waits for no one."""
-    ms = [m for m in getattr(record, "gather_ms", None) or () if m is not None]
+    ms = [m for m in record.gather_ms if m is not None]
     return min(ms) if ms else None
 
 
 def rank_skew_ms(record):
     """The most less the least of the same: how long the first rank to
     finish waits for the last."""
-    ms = [m for m in getattr(record, "gather_ms", None) or () if m is not None]
+    ms = [m for m in record.gather_ms if m is not None]
     return max(ms) - min(ms) if ms else None
 
 
@@ -346,18 +298,3 @@ def skew_bounds(device, calls, windows=()) -> dict:
             "offset_us_min": max(v for _, v in lags) * 1e-3 if lags else None, "copies": len(lags),
             "calls": len(calls), "windows": len(pinned), "crossed": sum(lo > hi for lo, hi in pinned),
             "offset_us_range": [min(p[0] for p in pinned), max(p[1] for p in pinned)] if pinned else None}
-
-
-def clock_skew(prof, windows=()) -> dict:
-    """``skew_bounds`` over a profiler's raw events."""
-    from torch.autograd import DeviceType
-
-    device, calls = [], []
-    for e in prof.profiler.kineto_results.events():
-        ev = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.correlation_id())
-        if e.device_type() == DeviceType.CUDA:
-            if not e.is_user_annotation():
-                device.append(ev)
-        elif _runtime(e):
-            calls.append(ev)
-    return skew_bounds(device, calls, windows)

@@ -39,7 +39,7 @@ def new_files(tmp_path, monkeypatch):
         if "imaging-1M.cpi256.split4" in m.get("workloads", []):
             m["workloads"].append("small-terrain.burst4")
     bench["per_layer"].append({"name": "pulses_traced", "unit": "pulses", "better": "higher",
-                               "source": "device_trace", "layer": "pulse loop", "moves": "cpi_s",
+                               "source": "device_trace", "layer": "pulse loop", "moves": "peak_mem_gb",
                                "workloads": ["small-terrain.burst4"]})
     monkeypatch.setattr(run, "ROOT", tmp_path)
     monkeypatch.setattr(adapter, "ROOT", dst)
@@ -51,7 +51,7 @@ def test_new_files_are_found_by_name(new_files):
     assert cell.config["targets"][0]["terrain"]["n"] == TINY["n"]
     assert cell.traffic["pulses"] == TINY["pulses"]
     assert cell.chips == 1
-    assert [m["name"] for m in cell.end_to_end] == ["setup_s", "cpi_s"]
+    assert [m["name"] for m in cell.end_to_end] == ["setup_s", "peak_mem_gb"]
     names = [m["name"] for m in cell.per_layer]
     assert "pulses_traced" in names and "mt_traverse_roofline" not in names
     assert run.reader("pulses_traced")(run.Record(prepare_s=1.0, pulses=2)) == 2.0
@@ -68,8 +68,8 @@ def test_tiny_cell_runs_end_to_end(new_files, trace, capsys):
     assert list(line)[:5] == required
     assert set(line) - set(required) <= {"breakdown", "checked"} and list(line)[-1] == "checked"
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] >= 1
-    want = {"setup_s", "cpi_s"} if not trace else {"prepare_s", "host_ops_per_pulse.imaging", "render_ms",
-                                                   "pulses_traced"}
+    want = {"setup_s", "peak_mem_gb"} if not trace else {"prepare_s", "host_ops_per_pulse.imaging", "render_ms",
+                                                         "cpi_s.imaging", "pulses_traced"}
     assert set(line["metrics"]) == want
     assert line["device"]["platform"] == "cpu" and line["device"]["count"] == 1
     tail = err.strip().splitlines()[-len(line["checked"]):]

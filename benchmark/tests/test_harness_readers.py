@@ -25,6 +25,12 @@ def test_idle_share_is_the_complement_of_the_union():
     assert readers.device_idle_pct(run.Record(prepare_s=0.0)) is None
 
 
+def test_the_window_reader_takes_all_its_time_over_all_its_cpis():
+    read = run.reader("cpi_s.imaging")
+    assert read(run.Record(prepare_s=0.0, window_s=49.5, cpis=15)) == pytest.approx(3.3)
+    assert read(run.Record(prepare_s=0.0)) is None
+
+
 def test_breakdown_names_gaps_by_the_overlapping_host_operator():
     rec = run.Record(prepare_s=0.0, stretch_ns=(0, 100),
                      device_events=[("k1", 0, 10), ("k2", 60, 100), ("k1", 10, 20)],

@@ -231,7 +231,7 @@ DEVICE = "cuda"
 # running-best window prune, the replay and the capped post-processing.
 # replay_cap is 256, not the bench's 128: at a 63^3 fan each sphere
 # returns the 63 identical-direction copies of its centre ray, 252 lanes
-# a pulse, and a cap of 128 would leave 124 of them unrefined.
+# a pulse, and a cap of 128 would grow the replay's block to 256.
 MOVING_KNOBS = dict(accel="cluster", cluster_size=1024, candidates=128, mt_group=1, p1_fanout=16,
                     p1_super_k=32, mt_prune=True, ray_tile=512, sub_tiles=8, mt_tail=True,
                     compact_narrow=-1, refine=True, replay_cap=256, agg_cap=1024)
@@ -360,27 +360,15 @@ def moving_world(pulses: int, subdiv: int | None = None):
 
 
 def dielectric_world(pulses: int, tris: int):
-    """BASELINE config 3 (bench.py --scene dielectric, bench.py:75-116): the
-    terrain of config 4 (~``tris`` triangles, 12 km, 300 m peaks) under a
-    200 m dielectric slab (2 m thick, pitched flat, at 1 km; refl 0.5,
+    """BASELINE config 3, ``rts_tpu_torch.bench``'s dielectric scene at
+    ~``tris`` triangles: the terrain of config 4 (12 km, 300 m peaks) under
+    a 200 m dielectric slab (2 m thick, pitched flat, at 1 km; refl 0.5,
     index 1.5), Tx and a monostatic Rx 4 km up looking down, a forward Rx
-    at 100 m looking up (capture sphere (60, 1.4, 1.4)), 10 GHz."""
-    from rts_tpu_torch.sim import (AttitudePath, Path, RadarSignal, Receiver, RotationPath,
-                                   Target, Transmitter, World)
+    at 600 m looking up (capture sphere (60, 1.4, 1.4)), 10 GHz."""
+    from rts_tpu_torch import bench
 
-    n = max(2, round(math.sqrt(tris / 2)) + 1)
-    down = RotationPath(elevation=-math.pi / 2)
-    w = World()
-    w.add(Transmitter(path=Path.fixed(0.0, 0.0, 4000.0), wave=RadarSignal(carrier=10e9),
-                      pulse_count=pulses, prf=1000.0, tx_span=(0.15, 0.15, 0.0), rotation=down))
-    w.add(Receiver(path=Path.fixed(0.0, 0.0, 4000.0), sphere=(25.0, 1.2, 1.2), rotation=down))
-    w.add(Receiver(path=Path.fixed(0.0, 0.0, 100.0), rotation=RotationPath(elevation=math.pi / 2),
-                   sphere=(60.0, 1.4, 1.4)))
-    w.add(Target(shape="terrain", terrain=(n, 12000.0, 300.0, 3), path=Path.fixed(0.0, 0.0, 0.0),
-                 refl_coeff=0.9))
-    w.add(Target(shape="rect", rect=(2.0, 200.0, 200.0), attitude=AttitudePath(pitch=math.pi / 2),
-                 path=Path.fixed(0.0, 0.0, 1000.0), refl_coeff=0.5, refr_index=1.5))
-    return w
+    args = bench.parse_args(["--scene", "dielectric", "--tris", str(tris), "--pulses", str(pulses)])
+    return bench.scene(args)[0]
 
 
 def dielectric_plate_world(pulses: int):

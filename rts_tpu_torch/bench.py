@@ -5,7 +5,8 @@
     python -m rts_tpu_torch.bench --tiny --device cpu  # a fast smoke run on the CPU
 
 The counterpart of the repo's ``bench.py``: the same flags and defaults,
-the same four worlds and the same ``prepare_cpi`` options, traced by the
+the same four worlds (but the dielectric scene's forward receiver, at
+600 m) and the same ``prepare_cpi`` options, traced by the
 port on ``--device`` (the card unless asked for another; without a CUDA
 card and without ``--device cpu`` it exits non-zero).  A "ray" is one
 primary launch cell traced through all its bounces and refraction
@@ -77,8 +78,12 @@ def scene(args):
     if args.scene == "dielectric":
         # BASELINE config 3: multistatic Tx + 2 Rx, dielectric target
         # (reflect+refract, 3x lane slots, 6 wavefront segments) in front
-        # of a large terrain.  The forward Rx catches exiting refraction
-        # chains.
+        # of a large terrain.  The forward Rx, looking up, receives the
+        # exiting refraction chains that the terrain throws back up past
+        # the slab (a chain is captured only once it leaves the scene).
+        # It sits at 600 m, 300 m above the terrain's highest peak, its
+        # sphere (600-720 m) under the slab's underside (999 m); bench.py
+        # has it at 100 m, where the sphere sits in the terrain's heights.
         n = max(2, round(math.sqrt(args.tris / 2)) + 1)
         w.transmitters[0].path = Path.fixed(0.0, 0.0, 4000.0)
         w.receivers[0].path = Path.fixed(0.0, 0.0, 4000.0)
@@ -86,7 +91,7 @@ def scene(args):
         w.transmitters[0].rotation = RotationPath(elevation=el)
         w.receivers[0].rotation = RotationPath(elevation=el)
         # forward receiver under the slab looking up
-        w.add(Receiver(path=Path.fixed(0.0, 0.0, 100.0), rotation=RotationPath(elevation=math.pi / 2),
+        w.add(Receiver(path=Path.fixed(0.0, 0.0, 600.0), rotation=RotationPath(elevation=math.pi / 2),
                        sphere=(60.0, 1.4, 1.4)))
         w.add(Target(shape="terrain", terrain=(n, 12000.0, 300.0, 3), path=Path.fixed(0.0, 0.0, 0.0),
                      refl_coeff=0.9))
@@ -171,8 +176,8 @@ def options(args) -> dict:
         fan_order=args.fan_order,
         refine=args.refine,
         # caps sized to the bench scenes' received counts (~N lanes a pulse
-        # at the N^3 fans, 2x headroom; an overflow is exact for agg_cap
-        # and warned of by check_replay_overflow for the replay)
+        # at the N^3 fans, 2x headroom; an overflow is exact for both: the
+        # replay's block grows to hold it)
         replay_cap=args.replay_cap if args.replay_cap is not None else 128,
         agg_cap=args.agg_cap if args.agg_cap is not None else 1024,
         rcs_angles=args.rcs_angles,
@@ -288,8 +293,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument(
         "--replay-cap", type=int, default=None,
-        help="compact received lanes and replay only this many (0 = all); lanes over the cap "
-        "keep float32 values, and the received counts a pulse are printed (stderr)",
+        help="compact received lanes to blocks of this many for the replay (0 = replay every lane); "
+        "a pulse over the cap grows its block, and the received counts a pulse are printed (stderr)",
     )
     ap.add_argument(
         "--agg-cap", type=int, default=None,
@@ -402,7 +407,7 @@ def main(argv=None) -> dict:
         counts = check_replay_overflow(out, cfg, warn=False)
         print(f"# replay: received lanes a pulse {counts.min()}-{counts.max()}, replay_cap "
               f"{cfg.replay_cap}, {int((counts > cfg.replay_cap).sum())} of {counts.size} pulses "
-              f"over it (their lanes past the cap keep float32 values)", file=sys.stderr)
+              f"over it (their replay blocks grown to hold them)", file=sys.stderr)
 
     cpi256_seconds = None
     if args.cpi256:

@@ -107,16 +107,20 @@ def replay_refine(base, res, cfg, extras, *, tx_span, fan_block: int | None = No
     ``l`` is slot ``l // fan_block`` of fan cell ``fan_offset + l %
     fan_block``.
 
-    With ``cfg.replay_cap`` smaller than the lane count, the first
-    ``replay_cap`` received lanes (in lane order) are gathered to a block
-    and only they are replayed; received lanes beyond the cap keep their
-    f32 values (``sim.check_replay_overflow`` warns about them).
+    With ``cfg.replay_cap`` smaller than the lane count, the received
+    lanes (in lane order) are gathered to a block of ``replay_cap`` lanes
+    and only they are replayed.  The received count is read on the host
+    first, and a pulse that received more than the cap grows its block to
+    the count rounded up to a multiple of the cap
+    (``sim.check_replay_overflow`` warns of it).  Every received lane is
+    refined, whatever the cap.
 
     The call is the ``rts.replay`` span.  The counters ``replay.lanes``
-    (received lanes refined) and ``replay.unrefined`` (received lanes past
-    the cap) take the count the capped block reads on the host; without a
+    (received lanes refined) and ``replay.overflow`` (those of them past
+    the cap) take the count the capped path reads on the host; without a
     cap every lane is replayed, and the received ones are counted on the
-    device while a profiler records.
+    device while a profiler records.  ``replay.unrefined`` (received lanes
+    left in float32) is 0 on both paths.
     """
     if extras is None or base.tri_verts_f64 is None:
         raise ValueError("refine=True needs the float64 replay state: build it with "
@@ -130,18 +134,22 @@ def replay_refine(base, res, cfg, extras, *, tx_span, fan_block: int | None = No
                 count("replay.lanes", (res.received >= 0).sum())
             count("replay.unrefined", 0)
             return _replay_core(base, res, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=None)
-        idx = received_first_idx(res.received, cap)
+
+        # the block holds every received lane: the cap, or the received
+        # count rounded up to a multiple of it
+        received = int((res.received >= 0).sum())
+        size = min(cap * max(1, -(-received // cap)), total)
+        idx = received_first_idx(res.received, size)
         sub = type(res)(*(take_lanes(a, idx) for a in res))
         sub = sub._replace(received=take_lanes(res.received, idx, fill=-1))
         out = _replay_core(base, sub, cfg, extras, tx_span, fan_block, fan_offset, lane_ids=idx)
-        received = int((res.received >= 0).sum())
-        m = min(received, cap)  # filler slots past the count are dropped
-        count("replay.lanes", m)
-        count("replay.unrefined", received - m)
+        count("replay.lanes", received)
+        count("replay.overflow", max(received - cap, 0))
+        count("replay.unrefined", 0)
         merged = {}
         for name in ("ray_length", "ray_length_lo", "power", "doppler"):
             a = getattr(res, name).clone()
-            a[idx[:m]] = getattr(out, name)[:m]
+            a[idx[:received]] = getattr(out, name)[:received]  # filler slots past the count are dropped
             merged[name] = a
         return res._replace(**merged)
 

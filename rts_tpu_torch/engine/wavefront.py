@@ -184,7 +184,8 @@ def _process_hit(state: LaneState, bufs: TraceBuffers, hit, hit_mask,
     valid after the first two segments, where no lane can spawn (it needs
     refl_depth == 0 and refr_depth < max_refr_dev), and it lets the
     narrow late segments trace a block of lanes that the shift does not
-    fit."""
+    fit.  The spawn, and the children's landing, are ``rts.refract``
+    spans."""
     tri = hit.tri.clamp(0, scene.tri_target.shape[0] - 1).long()
     nt = scene.target_refl.shape[0]
     clustered = isinstance(scene, ClusterScene)
@@ -269,60 +270,66 @@ def _process_hit(state: LaneState, bufs: TraceBuffers, hit, hit_mask,
     rcs = bufs.rcs
     spawning = cfg.refraction_on and spawn
     if spawning:
-        can = gate & (refl_c.abs() != 1.0) & (state.refr_depth < cfg.max_refr_dev) & (state.refl_depth == 0)
-        refr_cur_child = torch.where(refr_prev_new == 1.0, tgather(scene.target_refr), 1.0)
-        ratio = _q32(refr_cur_child / refr_prev_new, cfg)
-        refr_dir, refr_ok = _refract(state.seg_dir, normal_f, ratio, cfg)
-        spawn_mask = can & refr_ok
-        child_power = torch.where(state.refl_depth + 1 < cfg.max_refl_dev, power * (1.0 - refl_c.abs()), power)
-        k1 = normalize3c(refr_dir)
-        lanes = spawn_mask.shape[0]
-        ones = torch.ones(lanes, dtype=torch.bool, device=gate.device)
-        child = LaneState(
-            origin=hit_point,
-            direction=refr_dir,
-            seg_dir=refr_dir,
-            tmin=torch.full((lanes,), SCENE_EPS, dtype=hit_point.dtype, device=gate.device),
-            ray_length=ray_length,
-            power=child_power,
-            doppler=state.doppler + dot3c(v_targ, k1 - k0),
-            refr_prev=refr_prev_new,
-            refr_cur=refr_cur_child,
-            refl_depth=state.refl_depth,
-            refr_depth=state.refr_depth + 1,
-            slot_base=state.slot_base + n3,
-            received=state.received,
-            first_hit=first_hit,
-            end=end,
-            active=ones,
-            born=ones,
-            tri_seq=tri_seq,
-            cap_bits=state.cap_bits,
-            cap_root0_bits=state.cap_root0_bits,
-        )
-        if cfg.rcs_angles:
-            # refraction RCS angles -> the child's row (normal_shader.cu:259-265)
-            k1_azi, k1_ele = _cart_to_sph2(-k1)
-            rcs_val = torch.stack([k0_azi + k1_azi, k0_ele + k1_ele], dim=0)
-            child_col = state.refl_depth + state.refr_depth  # refl + (refr + 1) - 1
-            rcs = _scatter_col(rcs, _shift_down(child_col, n3), _shift_down(rcs_val, n3),
-                               _shift_down(spawn_mask, n3))
+        with trace_annotation("rts.refract"):
+            can = gate & (refl_c.abs() != 1.0) & (state.refr_depth < cfg.max_refr_dev) & (state.refl_depth == 0)
+            refr_cur_child = torch.where(refr_prev_new == 1.0, tgather(scene.target_refr), 1.0)
+            ratio = _q32(refr_cur_child / refr_prev_new, cfg)
+            refr_dir, refr_ok = _refract(state.seg_dir, normal_f, ratio, cfg)
+            spawn_mask = can & refr_ok
+            if profiling():  # a primary's child is trapped, a trapped chain's exits
+                primary = state.slot_base == 0
+                count("refract.spawned.trapped", (spawn_mask & primary).sum())
+                count("refract.spawned.exiting", (spawn_mask & ~primary).sum())
+                count("refract.tir", (can & ~refr_ok).sum())
+            child_power = torch.where(state.refl_depth + 1 < cfg.max_refl_dev, power * (1.0 - refl_c.abs()), power)
+            k1 = normalize3c(refr_dir)
+            lanes = spawn_mask.shape[0]
+            ones = torch.ones(lanes, dtype=torch.bool, device=gate.device)
+            child = LaneState(
+                origin=hit_point,
+                direction=refr_dir,
+                seg_dir=refr_dir,
+                tmin=torch.full((lanes,), SCENE_EPS, dtype=hit_point.dtype, device=gate.device),
+                ray_length=ray_length,
+                power=child_power,
+                doppler=state.doppler + dot3c(v_targ, k1 - k0),
+                refr_prev=refr_prev_new,
+                refr_cur=refr_cur_child,
+                refl_depth=state.refl_depth,
+                refr_depth=state.refr_depth + 1,
+                slot_base=state.slot_base + n3,
+                received=state.received,
+                first_hit=first_hit,
+                end=end,
+                active=ones,
+                born=ones,
+                tri_seq=tri_seq,
+                cap_bits=state.cap_bits,
+                cap_root0_bits=state.cap_root0_bits,
+            )
+            if cfg.rcs_angles:
+                # refraction RCS angles -> the child's row (normal_shader.cu:259-265)
+                k1_azi, k1_ele = _cart_to_sph2(-k1)
+                rcs_val = torch.stack([k0_azi + k1_azi, k0_ele + k1_ele], dim=0)
+                child_col = state.refl_depth + state.refr_depth  # refl + (refr + 1) - 1
+                rcs = _scatter_col(rcs, _shift_down(child_col, n3), _shift_down(rcs_val, n3),
+                                   _shift_down(spawn_mask, n3))
 
-        # pre-filled trapped and exiting path rows (normal_shader.cu:221-239)
-        prefill = spawn_mask & (state.refr_depth == 0) & (state.slot_base == 0)
-        r_rows = path.shape[1]
-        # the trapped row (slot 1): every column
-        path = torch.where(_shift_to_rows(prefill, n3, r_rows)[None], _shift_to_rows(targ, n3, r_rows)[None],
-                           path)
-        # the exiting rows (slots j + 2, j = 0 .. max_refl_dev - 1): columns 0 .. j + 1
-        cols = torch.arange(cfg.depth_total, device=path.device)[:, None]
-        for j in range(cfg.max_refl_dev):
-            off = (j + 2) * n3
-            if off >= r_rows:
-                break
-            rows = _shift_to_rows(prefill, off, r_rows)
-            tg = _shift_to_rows(targ, off, r_rows)
-            path = torch.where(rows[None] & (cols < min(j + 2, cfg.depth_total)), tg[None], path)
+            # pre-filled trapped and exiting path rows (normal_shader.cu:221-239)
+            prefill = spawn_mask & (state.refr_depth == 0) & (state.slot_base == 0)
+            r_rows = path.shape[1]
+            # the trapped row (slot 1): every column
+            path = torch.where(_shift_to_rows(prefill, n3, r_rows)[None], _shift_to_rows(targ, n3, r_rows)[None],
+                               path)
+            # the exiting rows (slots j + 2, j = 0 .. max_refl_dev - 1): columns 0 .. j + 1
+            cols = torch.arange(cfg.depth_total, device=path.device)[:, None]
+            for j in range(cfg.max_refl_dev):
+                off = (j + 2) * n3
+                if off >= r_rows:
+                    break
+                rows = _shift_to_rows(prefill, off, r_rows)
+                tg = _shift_to_rows(targ, off, r_rows)
+                path = torch.where(rows[None] & (cols < min(j + 2, cfg.depth_total)), tg[None], path)
 
     # --- reflection (normal_shader.cu:286-333)
     refl_depth = torch.where(gate, state.refl_depth + 1, state.refl_depth)
@@ -362,9 +369,10 @@ def _process_hit(state: LaneState, bufs: TraceBuffers, hit, hit_mask,
         tri_seq=tri_seq,
     )
     if spawning:
-        # the children move n3 lanes down (the uniform shift, not a scatter)
-        land = _shift_down(spawn_mask, n3)
-        merged = LaneState(*(torch.where(land, _shift_down(c, n3), s) for c, s in zip(child, merged)))
+        with trace_annotation("rts.refract"):
+            # the children move n3 lanes down (the uniform shift, not a scatter)
+            land = _shift_down(spawn_mask, n3)
+            merged = LaneState(*(torch.where(land, _shift_down(c, n3), s) for c, s in zip(child, merged)))
     return merged, TraceBuffers(path=path, rcs=rcs)
 
 
@@ -643,6 +651,12 @@ def trace_fan(
     from the fan, a narrow segment's from the counts it reads on the host,
     the others' on the device while a profiler records), and
     ``segment.narrow`` the segments traced as their live tiles only.
+    With refraction on, the spawn is an ``rts.refract`` span, and while a
+    profiler records the device counts ``refract.spawned.trapped``,
+    ``refract.spawned.exiting`` (children born, by slot), ``refract.tir``
+    (lanes that could refract but met total internal reflection) and
+    ``rx.received.primary``, ``.trapped``, ``.exiting`` (received lanes,
+    by slot).
     """
     dtype = scene[0].dtype  # tri_pack (ClusterScene) or tri_p0 (DeviceScene)
     dev = fan_dirs.device
@@ -760,6 +774,10 @@ def trace_fan(
         inv = torch.empty_like(lane_perm)
         inv[lane_perm] = torch.arange(lanes, device=dev)
         state, bufs = _permute_lanes(state, bufs, inv)
+    if cfg.refraction_on and profiling():
+        got = state.received >= 0
+        for s, name in enumerate(("rx.received.primary", "rx.received.trapped", "rx.received.exiting")):
+            count(name, got[s * n3:(s + 1) * n3].sum())
 
     def fill(x, value):
         if lanes == ray_total:

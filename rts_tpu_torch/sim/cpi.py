@@ -241,9 +241,10 @@ def prepare_cpi(
 
 def check_replay_overflow(out: CpiResult, cfg: TraceConfig, *, warn: bool = True):
     """Per-pulse received-lane counts ([P] int array); warns when a pulse
-    received more lanes than ``cfg.replay_cap`` under ``cfg.refine``:
-    lanes beyond the cap keep f32 values and break the 1e-6 power/phase
-    contract.  ``run_cpi`` calls it on every trace."""
+    received more lanes than ``cfg.replay_cap`` under ``cfg.refine``: its
+    replay block grew past the cap to refine them, so the cap does not
+    bound the replay's work and memory on this scene.  ``run_cpi`` calls
+    it on every trace."""
     counts = (out.received >= 0).sum(dim=1).cpu().numpy()
     if cfg.refine and cfg.replay_cap and counts.size:
         worst = int(counts.max())
@@ -251,7 +252,7 @@ def check_replay_overflow(out: CpiResult, cfg: TraceConfig, *, warn: bool = True
             over = int((counts > cfg.replay_cap).sum())
             warnings.warn(
                 f"replay cap overflow: {over} pulse(s) received more lanes than "
-                f"replay_cap={cfg.replay_cap} (worst {worst})",
+                f"replay_cap={cfg.replay_cap} (worst {worst}); the replay block grew to hold them",
                 UserWarning, stacklevel=2,
             )
     return counts

@@ -69,7 +69,8 @@ def test_generate_fan_matches():
 def world(S, refraction):
     """A terrain 4 km under a Tx/Rx looking down; with ``refraction`` the
     dielectric slab of bench.py --scene dielectric (200 m, refl 0.5,
-    index 1.5) at 1 km and its forward Rx at 100 m looking up."""
+    index 1.5) at 1 km and a forward Rx looking up, at 100 m (above this
+    cut's 60 m peaks; rts_tpu_torch/bench.py's stands at 600 m)."""
     w = S.World()
     down = S.RotationPath(elevation=-math.pi / 2)
     w.add(S.Transmitter(path=S.Path.fixed(0.0, 0.0, 4000.0), wave=S.RadarSignal(carrier=CARRIER),

@@ -227,7 +227,8 @@ def test_f64_engine_matches(name, against):
 def dielectric_world(S, pulses=2, n=24, extent=1500.0, peak=60.0):
     """bench.py --scene dielectric (BASELINE config 3, bench.py:75-116) cut
     to ~1k terrain triangles: Tx and a monostatic Rx 4 km up looking down,
-    a forward Rx at 100 m looking up, a 200 m dielectric slab (refl 0.5,
+    a forward Rx looking up at 100 m (above this cut's 60 m peaks;
+    bench.py's stands at 600 m), a 200 m dielectric slab (refl 0.5,
     index 1.5) pitched flat at 1 km over the terrain."""
     w = S.World()
     down = S.RotationPath(elevation=-math.pi / 2)

@@ -147,13 +147,19 @@ def test_ray_length_matches_f64_engine(runs):
     assert (res.ray_length_lo.numpy()[~got] == 0).all()
 
 
-def test_replay_cap_compaction_identical(runs):
-    """A replay_cap block at least as large as the received count replays
-    exactly what the full-lane replay does."""
+@pytest.mark.parametrize("cap", ["count", 4, 1])
+def test_replay_cap_compaction_identical(runs, cap):
+    """A replay_cap block replays exactly what the full-lane replay does:
+    one as large as the received count, and one below it, which grows to
+    hold the lanes past the cap (the JAX package leaves them float32)."""
     base, batch, cfg, spec = runs["state"]
     counts = (runs["port"].received >= 0).sum(1)
+    if cap == "count":
+        cap = int(counts.max())
+    else:
+        assert int(counts.min()) > 2 * cap  # the block grows to more than twice the cap
     full = trace_cpi(base, batch, dataclasses.replace(cfg, replay_cap=0), spec)
-    capped = trace_cpi(base, batch, dataclasses.replace(cfg, replay_cap=int(counts.max())), spec)
+    capped = trace_cpi(base, batch, dataclasses.replace(cfg, replay_cap=cap), spec)
     for name in ("power", "doppler", "delay", "received"):
         assert torch.equal(getattr(full, name), getattr(capped, name)), name
     for name in ("phase", "phase_lo", "power"):
@@ -161,8 +167,9 @@ def test_replay_cap_compaction_identical(runs):
 
 
 def test_replay_cap_overflow_warns(runs):
-    """A cap below the received count is surfaced loudly; a big enough cap,
-    or 0 (replay every lane), stays silent."""
+    """A cap below the received count (a replay block grown past it) is
+    surfaced loudly; a big enough cap, or 0 (replay every lane), stays
+    silent."""
     base, batch, cfg, spec = runs["state"]
     small = dataclasses.replace(cfg, replay_cap=4)
     out = trace_cpi(base, batch, small, spec)

@@ -66,13 +66,13 @@ def test_caps_firing_on_a_ray_split(spawned):
 
 def test_caps_part_the_split_from_the_unsplit_trace_as_in_rts_tpu(spawned):
     """Every ray block receives lanes (9^3 in three blocks of 243) and the
-    replay cap is half a pulse's received lanes.  The unsplit trace
-    replays the pulse's first ``cap`` received lanes, the split each
-    block's first ``cap``: that is rts_tpu's semantics (its replay runs
-    inside each block).  So the split equals the unsplit trace bit for bit
-    on every lane but those replayed by a block and not by the pulse,
-    where the continuous outputs part (and the aggregates of their path
-    groups; decisions never do), and it matches rts_tpu's split."""
+    replay cap is half a pulse's received lanes.  rts_tpu's replay refines
+    each block's first ``cap`` received lanes under the split and the
+    pulse's first ``cap`` without it, so its two results part on the lanes
+    replayed by a block and not by the pulse.  The port grows its replay
+    block to hold every received lane, so on those lanes too the split
+    equals the unsplit trace bit for bit, and it matches rts_tpu's split
+    to the float32 tolerances."""
     wide, cap = spawned["wide"]
     assert min(_per_block(wide.received)) > 0
     got = spawned["results"]["wide"]
@@ -81,16 +81,8 @@ def test_caps_part_the_split_from_the_unsplit_trace_as_in_rts_tpu(spawned):
     block = rec.shape[0] // 3
     in_block = torch.cat([torch.cumsum(rec[i * block:(i + 1) * block].int(), 0) for i in range(3)])
     parting = rec & (in_block <= cap) & (torch.cumsum(rec.int(), 0) > cap)
-    assert int(parting.sum()) > 0
-    # an aggregate is its path group's, on every lane of the group
-    match = ref["agg.path_match"][0]
-    grouped = rec & torch.isin(match, match[parting])
-    for k in ref:
-        may_part = grouped if k.startswith("agg.") else parting
-        assert not bool(((got[k] != ref[k])[0] & ~may_part).any()), f"{k} parts outside the lanes only the split replays"
-    assert bool((got["power"] != ref["power"])[0][parting].any())
-    for k in ("received", "agg.emit", "agg.npath", "agg.path_match"):
-        assert torch.equal(got[k], ref[k]), k
+    assert int(parting.sum()) > 0  # the lanes where rts_tpu's two results part
+    _assert_bit_identical(got, ref, "the replay cap on a (1, 3) split")
     _assert_matches_rts_tpu(got, _jax_sharded(_cap_case(cap, wide_world, 9), (1, 3)), f64=False)
 
 

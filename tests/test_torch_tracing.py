@@ -120,8 +120,10 @@ def test_replay_counters_match_the_result(runs):
     out, _, counted = runs["host"]
     received = (out.received >= 0).sum(1).tolist()
     assert max(received) > cap
-    assert counted["replay.lanes"] == sum(min(c, cap) for c in received)
-    assert counted["replay.unrefined"] == sum(max(c - cap, 0) for c in received)
+    # every received lane is refined, those past the cap in a grown block
+    assert counted["replay.lanes"] == sum(received)
+    assert counted["replay.overflow"] == sum(max(c - cap, 0) for c in received) > 0
+    assert counted["replay.unrefined"] == 0
     out, _, counted = runs["device"]  # no cap: every received lane is refined
     assert counted["replay.lanes"] == int((out.received >= 0).sum())
     assert counted["replay.unrefined"] == 0

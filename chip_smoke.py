@@ -21,7 +21,7 @@ against the card, the port's examples, its bench and its contract check.  There 
 CUDA card it exits non-zero before printing any result.
 
 Phases (each line stamped with the card's name and power limit):
-  1. build the kernels (csrc/mt_traverse.cu, csrc/phase1.cu) from source, with the
+  1. build the kernels (csrc/mt_traverse.cu, csrc/phase1.cu, csrc/shade.cu) from source, with the
      compiler's register report; the candidate and sweep grids' blocks and
      warps per SM at the two paths' shapes;
   2. kernel against its plain PyTorch version: the segment-1 rays of one
@@ -35,6 +35,17 @@ Phases (each line stamped with the card's name and power limit):
      tiles of every launch, as the kernel counts them on the device;
   4. one terrain pulse through the plain traversal: received, emit and
      path rows must equal the kernel run's;
+  5. the shading kernel (csrc/shade.cu, engine.wavefront.shade_cuda) on
+     every segment of pulse 0 of the terrain CPI (63^3, its narrow segment
+     on the gathered rows), the dielectric CPI (config 3: the two spawn
+     segments' miss half and the four whole segments) and config 5 (31^3,
+     the cpi256 knobs): each launch's operands as the pulse gave them, the
+     kernel on copies against _process_miss and _process_hit on copies,
+     every LaneState field and both buffers bit for bit; the kernel's
+     device time (torch.profiler), its wrapper's host time, the plain
+     programs' time, launches and device time on the card, and the bound:
+     the bytes that call's lanes must move over the memory rate.  Runs
+     alone as python3 -c "import chip_smoke as s, torch; s.shade_phases(s.card_line(), torch.device('cuda'))"
   a. moving scene, segment 1 of pulse 0 at its knobs (mt_prune=True, K3):
      kernel against plain (tri/found identical, t/beta/gamma bit-equal),
      and the kernel with the prune against the kernel without it; the
@@ -204,7 +215,11 @@ the sweep, K2, with each of its
 three calls: terrain-20k sweep-only, the terrain overflow, the moving
 swept tiles; phase 1's kernel with phase z's calls and its launches by
 path, the phase1.calls counter of every main-path run above, each equal
-to that run's traversal calls); the last line is the JSON result.
+to that run's traversal calls; the shading kernel with phase 5's calls,
+its launches by path and its time and bound a pulse of each path, the
+shade.calls counter of every main-path run that reads phase1.calls, each
+equal to that run's traversal calls, or on the bench's brute-force --tiny
+run to its pulses times segments); the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -519,6 +534,20 @@ def phase1_calls(what: str) -> int:
     return n
 
 
+def shade_calls(what: str, segments: int | None = None) -> int:
+    """The shading kernel's launches since reset_counts (the ``shade.calls``
+    counter): one launch a segment traced on float32 CUDA state, so it must
+    equal ``segments``, by default that run's traversal calls (one a
+    segment traced on a clustered path; both 0 on the CPU)."""
+    from rts_tpu_torch.utils import timing
+
+    n = timing.counters().get("shade.calls", 0)
+    want = kernel_calls() if segments is None else segments
+    if n != want:
+        raise AssertionError(f"{what}: {n} shading kernel launches against {want} segments traced")
+    return n
+
+
 def sweep_counts():
     """(calls that swept a tile, swept tiles) since reset_counts, as the
     kernel counted them on the device."""
@@ -550,10 +579,14 @@ def check_call(inp, shape, what: str) -> dict:
                 **bound(inp, shape, got[5], pairs, clusters))
 
 
+def bits_of(x: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor as its bits (so that NaN and -0.0 compare), other
+    dtypes as they are."""
+    return x.view(torch.int32) if x.dtype.is_floating_point else x
+
+
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    if a.dtype.is_floating_point:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-    return torch.equal(a, b)
+    return torch.equal(bits_of(a), bits_of(b))
 
 
 def compare_hits(got, ref, what: str, against: str = "the plain version") -> float:
@@ -878,6 +911,7 @@ def dielectric_phases(card: str, dev) -> dict:
         first_s = time.perf_counter() - t0
         launches = kernel_calls()
         p1 = phase1_calls("phase n")
+        shade = shade_calls("phase n")
         sweeps, swept = sweep_counts()
         check_replay_overflow(out, cfg)
     received = int((out.received >= 0).sum())
@@ -912,9 +946,11 @@ def dielectric_phases(card: str, dev) -> dict:
     del again, plain
 
     # one pulse with its segments seen: each segment's kernel operands and
-    # its live lanes by slot (a lane's slot rides in its slot_base)
+    # its live lanes by slot (a lane's slot rides in its slot_base), taken
+    # where the segment's miss program starts: the shading kernel on the
+    # card, _process_miss elsewhere (each segment runs one of the two)
     calls, live = [], []
-    inner_hit, inner_miss = W.closest_hit_clustered, W._process_miss
+    inner_hit, inner_miss, inner_shade = W.closest_hit_clustered, W._process_miss, W.shade_cuda
 
     def hit_spy(*a, **k):
         def keep(inp, shape):
@@ -923,17 +959,20 @@ def dielectric_phases(card: str, dev) -> dict:
 
         return inner_hit(*a, **{**k, "traverse": keep})
 
-    def miss_spy(st, *a, **k):
-        live.append(torch.bincount((st.slot_base // n3).long()[st.active], minlength=3))
-        return inner_miss(st, *a, **k)
+    def live_spy(inner):
+        def spy(st, *a, **k):
+            live.append(torch.bincount((st.slot_base // n3).long()[st.active], minlength=3))
+            return inner(st, *a, **k)
+
+        return spy
 
     args0 = pulse_args(batch, 0)
     one, agg = make_pulse_fn(base, cfg, spec)
-    W.closest_hit_clustered, W._process_miss = hit_spy, miss_spy
+    W.closest_hit_clustered, W._process_miss, W.shade_cuda = hit_spy, live_spy(inner_miss), live_spy(inner_shade)
     try:
         res0 = one(*args0)[0]
     finally:
-        W.closest_hit_clustered, W._process_miss = inner_hit, inner_miss
+        W.closest_hit_clustered, W._process_miss, W.shade_cuda = inner_hit, inner_miss, inner_shade
     if not torch.equal(res0.received, out.received[0]) or len(calls) < 3:
         raise AssertionError(f"phase n: the seen pulse differs from trace_cpi's, or {len(calls)} segments")
     for i, ((inp, _), lv) in enumerate(zip(calls, live)):
@@ -1021,7 +1060,7 @@ def dielectric_phases(card: str, dev) -> dict:
                     f"({pairs:.4g} pairs at most, {pairs / f64_s:.4g} pairs/s)")
         del f64_state, prod, f64
     stamp(card, f"phases n and o: {t_o - t_n:.1f} s, {time.perf_counter() - t_o:.1f} s")
-    return dict(launches=launches, p1=p1, sweeps=sweeps, swept=swept, calls=k1_calls)
+    return dict(launches=launches, p1=p1, shade=shade, sweeps=sweeps, swept=swept, calls=k1_calls)
 
 
 def brute_phases(card: str, dev, params) -> None:
@@ -1236,17 +1275,24 @@ def window_edge(state, p: int, lane: int) -> float:
     from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
 
     seen = []
-    inner = W._process_miss
+    inner = W._process_miss, W.shade_cuda
+
+    def see(st, miss, rx):
+        seen.append((st.origin[:, lane].double(), st.direction[:, lane].double(), bool((miss & ~st.end)[lane]), rx))
 
     def spy(st, miss, rx, *a, **k):
-        seen.append((st.origin[:, lane].double(), st.direction[:, lane].double(), bool((miss & ~st.end)[lane]), rx))
-        return inner(st, miss, rx, *a, **k)
+        see(st, miss, rx)
+        return inner[0](st, miss, rx, *a, **k)
 
-    W._process_miss = spy
+    def shade_spy(st, bufs, hit, scene, rx, *a, **k):  # the card's segments: the miss program in the kernel
+        see(st, st.active & ~hit.found, rx)
+        return inner[1](st, bufs, hit, scene, rx, *a, **k)
+
+    W._process_miss, W.shade_cuda = spy, shade_spy
     try:  # every segment at full width, so that lane indexes the state (bit-identical)
         make_pulse_fn(state[0], dataclasses.replace(state[2], compact_narrow=0), state[3])[0](*pulse_args(state[1], p))
     finally:
-        W._process_miss = inner
+        W._process_miss, W.shade_cuda = inner
     wrap = lambda x: abs((x + math.pi) % (2 * math.pi) - math.pi)
     half = math.pi / 2
     best = float("inf")
@@ -1318,6 +1364,7 @@ def render_phases(card: str, dev) -> dict:
             run_s = time.perf_counter() - t0
         launches, (sweeps, swept) = kernel_calls(), sweep_counts()
         p1 = phase1_calls("phase p")
+        shade = shade_calls("phase p")
         trace_peak = (torch.cuda.max_memory_allocated(dev) - held0) / 1e9
         per_pulse = (out.received >= 0).sum(1)
         most = int(per_pulse.max())
@@ -1517,6 +1564,7 @@ def render_phases(card: str, dev) -> dict:
             if cli_launches == 0:
                 raise AssertionError("phase r: the CLI's clustered CPI never launched the traversal kernel")
             cli_p1 = phase1_calls("phase r, the CLI's clustered CPI")
+            cli_shade = shade_calls("phase r, the CLI's clustered CPI")
     worst = {}
     for what, tol in (("cpi", 1e-6), ("run", 1e-9)):
         if printed[what, "cuda"] != printed[what, "cpu"]:
@@ -1557,8 +1605,8 @@ def render_phases(card: str, dev) -> dict:
                 f"{worst['run']['doppler']:.3e}, phase {worst['run']['phase']:.3e}; the .npz equals the "
                 f"in-memory responses; info lists {len(names)} receivers and targets")
     stamp(card, f"phases p, q, r: {t_q - t_p:.1f} s, {t_r - t_q:.1f} s, {time.perf_counter() - t_r:.1f} s")
-    return dict(launches=launches, p1=p1, cli_launches=cli_launches, cli_p1=cli_p1, call=k1, render_ms=render_ms, state=state, out=out,
-                warm_s=warm_s)
+    return dict(launches=launches, p1=p1, shade=shade, cli_launches=cli_launches, cli_p1=cli_p1, cli_shade=cli_shade,
+                call=k1, render_ms=render_ms, state=state, out=out, warm_s=warm_s)
 
 
 def split_phases(card: str, dev, img: dict) -> dict:
@@ -1605,6 +1653,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
         split_s = time.perf_counter() - t0
         s_launches = kernel_calls()
         s_p1 = phase1_calls("phase s")
+        s_shade = shade_calls("phase s")
         backend = dist.get_backend(mesh.get_group("ray"))
         t0 = time.perf_counter()  # trace_cpi again after the split: phase p, split, phase p
         trace_cpi(*state)
@@ -1684,6 +1733,7 @@ def split_phases(card: str, dev, img: dict) -> dict:
         t_launches += sum(per_block)
         t_rows[k] = dict(ties=ties, launches=per_block)
     t_p1 = phase1_calls("phase t")
+    t_shade = shade_calls("phase t")
     # ms per pulse of each split, in turns: whole, 3, 9, 9, 3, whole
     turns = {k: [] for k in (1, *RAY_BLOCKS)}
     for k in (1, *RAY_BLOCKS, *reversed(RAY_BLOCKS), 1):
@@ -1806,7 +1856,8 @@ def split_phases(card: str, dev, img: dict) -> dict:
         sys.argv, tempfile.tempdir = argv, tmp
     stamp(card, f"phases s, t, u, v, w: {t_t - t_s:.1f} s, {t_u - t_t:.1f} s, {t_v - t_u:.1f} s, "
                 f"{t_w - t_v:.1f} s, {time.perf_counter() - t_w:.1f} s")
-    return dict(s_launches=s_launches, s_p1=s_p1, t_launches=t_launches, t_p1=t_p1)
+    return dict(s_launches=s_launches, s_p1=s_p1, s_shade=s_shade, t_launches=t_launches, t_p1=t_p1,
+                t_shade=t_shade)
 
 
 def quiet(fn, *args):
@@ -1827,13 +1878,23 @@ def bench_phases(card: str, dev) -> dict:
     printed lines stamped.  Returns the bench's K1 launches on the
     terrain, and its K3 launches and swept tiles on the sphere."""
     from rts_tpu_torch import bench, contract
+    from rts_tpu_torch.engine.wavefront import shade_on_card
 
     t_x = time.perf_counter()
     # ---- x. the bench: --tiny, and configs 4 and 1 at full width
     launches = {}
     for what, argv in BENCH_RUNS:
-        traces, trace = [], bench.trace_cpi
-        bench.trace_cpi = lambda *state: traces.append(trace(*state)) or traces[-1]
+        traces, brute, trace = [], [], bench.trace_cpi
+
+        def traced(*state, traces=traces, brute=brute, trace=trace):
+            # a brute-force CPI on the card shades every segment of every pulse
+            base_, batch_, cfg_, _ = state
+            if cfg_.accel != "cluster" and shade_on_card(base_.tri_verts, cfg_):
+                brute.append(batch_.tx_origin.shape[0] * cfg_.num_segments)
+            traces.append(trace(*state))
+            return traces[-1]
+
+        bench.trace_cpi = traced
         reset_counts(dev)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1847,6 +1908,8 @@ def bench_phases(card: str, dev) -> dict:
         k1 = kernel_calls() - k3 - kernel_calls("K5") - kernel_calls("K6")
         sweeps, swept = sweep_counts()
         launches[what] = dict(K1=k1, K3=k3, P1=phase1_calls(f"phase x {what}"), sweeps=sweeps, swept=swept)
+        # --stats traces segment 1 once more outside a CPI (bench._stats): no shading
+        launches[what]["S"] = shade_calls(f"phase x {what}", kernel_calls() - int("--stats" in argv) + sum(brute))
         received = int((traces[-1].received >= 0).sum())
         for line in lines:
             stamp(card, f"phase x {what}: {line}")
@@ -1877,7 +1940,7 @@ def bench_phases(card: str, dev) -> dict:
     stamp(card, f"phases x and y: {t_y - t_x:.1f} s, {time.perf_counter() - t_y:.1f} s")
     return dict(k1_terrain=launches["terrain-1M"]["K1"], k3_sphere=launches["sphere-1.31M"]["K3"],
                 sphere_sweeps=launches["sphere-1.31M"]["sweeps"], sphere_swept=launches["sphere-1.31M"]["swept"],
-                p1={what: n["P1"] for what, n in launches.items()})
+                p1={what: n["P1"] for what, n in launches.items()}, shade={what: n["S"] for what, n in launches.items()})
 
 
 def oracle_scenes() -> dict:
@@ -1970,6 +2033,171 @@ def phase1_phases(card: str, dev) -> dict:
             "source": "rts_tpu_torch/ops/csrc/phase1.cu",
             "replaces": "none: rts_tpu/ops/cluster_trace.py:_tile_candidates is plain XLA",
             "calls": calls}
+
+
+SHADE_REPS = 20  # phase 5: kernel launches timed a call
+
+
+def plain_shade(state, bufs, hit, scene, rx, tx_origin, cfg, miss_only: bool):
+    """What one shade_cuda call computes, by the plain programs:
+    _process_miss, then unless ``miss_only`` _process_hit without the
+    spawn (both leave their operands as they were)."""
+    from rts_tpu_torch.engine import wavefront as W
+
+    hit_mask = state.active & hit.found
+    state = W._process_miss(state, state.active & ~hit.found, rx, tx_origin, cfg)
+    if miss_only:
+        return state, bufs
+    return W._process_hit(state, bufs, hit, hit_mask, scene, tx_origin, cfg, state.origin.shape[1], spawn=False)
+
+
+def shade_bytes(st, hit, cfg, miss_only: bool, smooth: bool, shade_rows: bool, num_rx: int, nt: int) -> int:
+    """The bytes one shading kernel call must move, from its lanes as the
+    call found them (``st``, ``hit``): each field the lane's program reads
+    or writes, once.  Every lane reads its active flag; a dead one reads and
+    writes its range and Doppler (not in the miss half).  A live lane reads
+    its origin, direction, depths, range, power, Doppler, end flag, found
+    flag, receiver and capture bits and writes the last three, then writes
+    range, power, Doppler, end and active.  A lane the closest-hit program
+    shades reads t, its triangle, its target, its normal (the corner
+    normals and barycentrics where smooth), the refraction index and
+    writes the old index, the depth and the origin; its path and triangle
+    records where their rows exist, the first hit on a first bounce, and on
+    a reflection reads its segment direction and writes it, the direction,
+    tmin and the RCS angles (with rcs_angles).  The receivers, the
+    transmitter and the per-target tables are read once."""
+    act = st.active
+    n_live = int(act.sum())
+    nbytes = (act.numel() - n_live) * (1 if miss_only else 17) + n_live * (71 + 14)
+    if not miss_only:
+        refl, refr = st.refl_depth, st.refr_depth
+        gate = act & hit.found & ~st.end & ((refr < cfg.max_refr_dev) | (refl < cfg.max_refl_dev - 1))
+        col = refl + refr
+        reflects = gate & (refl + 1 < cfg.max_refl_dev)
+        depth, width = cfg.depth_total, st.tri_seq.shape[0]
+        nbytes += int(gate.sum()) * (8 + 4 + (44 if smooth else 12) + 4 + 8 + 12)
+        nbytes += 4 * int((gate & (refr != 1) & (col < depth)).sum()) + 4 * int((gate & (col < width)).sum())
+        nbytes += 12 * int((gate & (refl == 0) & (refr == 0)).sum()) + 40 * int(reflects.sum())
+        if cfg.rcs_angles:
+            nbytes += 8 * int((reflects & (col < depth)).sum())
+    return nbytes + num_rx * 32 + 12 + nt * (16 + (36 if shade_rows else 0))
+
+
+def kernel_device_ms(fn, name: str, reps: int):
+    """The mean device time (ms) of the kernels whose name holds ``name``
+    over ``reps`` calls of fn, by torch.profiler; None when the profiler
+    recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    us = [device_us(e) for e in prof.key_averages()
+          if getattr(e, "device_type", None) == DeviceType.CUDA and name in e.key]
+    return sum(us) / 1e3 / reps if us and sum(us) > 0 else None
+
+
+def shade_phases(card: str, dev) -> dict:
+    """Phase 5: the shading kernel (csrc/shade.cu) on every segment of pulse
+    0 of the terrain CPI, the dielectric CPI and config 5, each launch's
+    operands kept as the pulse gave them: the kernel on copies against the
+    plain programs on copies, every LaneState field and both buffers bit
+    for bit (float32 as its bits); the kernel's device time, its wrapper's
+    host time a call, the plain programs' time (CUDA events), launches and
+    device time; the bound, shade_bytes over the memory rate (the
+    operations, a few hundred a lane at most, are not counted: at the
+    FP32 peak they take a tenth of the bytes' time or less).  Returns the
+    kernels line's entry, less its launches (main's, read from the main
+    paths' runs)."""
+    from rts_tpu_torch import Parameters
+    from rts_tpu_torch.engine import wavefront as W
+    from rts_tpu_torch.engine.animate import ClusterScene
+    from rts_tpu_torch.engine.cpi import make_pulse_fn, pulse_args
+    from rts_tpu_torch.engine.intersect import HitResult
+    from rts_tpu_torch.sim import prepare_cpi
+
+    calls, pulses = [], {}
+    for what, world, params, knobs in (
+            ("terrain", terrain_world(1, TRIS), Parameters(num_rays=NUM_RAYS, max_refl_depth=2), {}),
+            ("dielectric", dielectric_world(1, TRIS),
+             Parameters(num_rays=NUM_RAYS, max_refl_depth=2, max_refr_depth=2), {}),
+            ("config 5", imaging_world(1, TRIS), Parameters(num_rays=IMAGING_RAYS, max_refl_depth=2),
+             IMAGING_KNOBS)):
+        state = prepare_cpi(world, params, preset="production", device=dev, **knobs)
+        kept, inner = [], W.shade_cuda
+
+        def keep(st, bufs, hit, scene, rx, tx_origin, cfg, miss_only=False, tables=None):
+            kept.append((W.LaneState(*(x.clone() for x in st)), W.TraceBuffers(*(x.clone() for x in bufs)),
+                         HitResult(*(None if x is None else x.clone() for x in hit)), scene, rx, tx_origin, cfg,
+                         miss_only))
+            return inner(st, bufs, hit, scene, rx, tx_origin, cfg, miss_only, tables)
+
+        W.shade_cuda = keep
+        try:
+            make_pulse_fn(state[0], state[2], state[3])[0](*pulse_args(state[1], 0))
+        finally:
+            W.shade_cuda = inner
+        sync()
+        cfg = state[2]
+        halves = sum(k[-1] for k in kept)  # a dead narrow segment is skipped
+        if not 1 <= len(kept) <= cfg.num_segments or halves != (2 if cfg.refraction_on else 0):
+            raise AssertionError(f"phase 5 {what}: {len(kept)} launches of {cfg.num_segments} segments, "
+                                 f"{halves} of them the miss half")
+        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, plain_launches=0)
+        for seg, (st, bufs, hit, scene, rx, tx, c, miss_only) in enumerate(kept, 1):
+            def fresh():
+                return W.LaneState(*(x.clone() for x in st)), W.TraceBuffers(*(x.clone() for x in bufs))
+
+            got = inner(*fresh(), hit, scene, rx, tx, c, miss_only)
+            ref = plain_shade(*fresh(), hit, scene, rx, tx, c, miss_only)
+            for name, a, b in zip((*W.LaneState._fields, *W.TraceBuffers._fields), (*got[0], *got[1]),
+                                  (*ref[0], *ref[1])):
+                if not bit_equal(a, b):
+                    raise AssertionError(f"phase 5 {what} segment {seg}: {name} differs from the plain "
+                                         f"programs' in {int((bits_of(a) != bits_of(b)).sum())} places")
+            copies = [fresh() for _ in range(SHADE_REPS)]
+            sync()
+            t0 = time.perf_counter()
+            for s_, b_ in copies:
+                inner(s_, b_, hit, scene, rx, tx, c, miss_only)
+            host_us = 1e6 * (time.perf_counter() - t0) / SHADE_REPS
+            del copies
+            ms = kernel_device_ms(lambda: inner(*fresh(), hit, scene, rx, tx, c, miss_only), "shade_kernel",
+                                  SHADE_REPS)
+            plain_ms = time_ms(lambda: plain_shade(st, bufs, hit, scene, rx, tx, c, miss_only), 3)
+            plain_launches, plain_device_ms = device_launches(
+                lambda: plain_shade(st, bufs, hit, scene, rx, tx, c, miss_only))
+            shade_rows = isinstance(scene, ClusterScene) and c.interpolate_smooth
+            nbytes = shade_bytes(st, hit, c, miss_only, c.interpolate_smooth, shade_rows, rx.num_rx,
+                                 scene.target_refl.shape[0])
+            r = {"what": f"{what} segment {seg}" + (" (miss half)" if miss_only else ""),
+                 "lanes": st.origin.shape[1], "live_lanes": int(st.active.sum()),
+                 "hits": int((st.active & hit.found).sum()), "ms": ms, "host_us": host_us,
+                 "plain_ms": plain_ms, "plain_launches": plain_launches, "plain_device_ms": plain_device_ms,
+                 "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_RATE, "bound_by": "bytes"}
+            r["share"] = None if ms is None else r["bound_ms"] / ms
+            calls.append(r)
+            for k in ("ms", "plain_ms", "bound_ms", "plain_launches"):
+                total[k] += r[k] or 0
+            kernel = "not recorded by the profiler" if ms is None else f"{ms:.4f} ms on the device"
+            share = "" if ms is None else f", {100 * r['share']:.1f}% of it"
+            stamp(card, f"phase 5 {r['what']}: {r['lanes']} lanes ({r['live_lanes']} live, {r['hits']} found a "
+                        f"triangle), every field bit-equal to the plain programs'; kernel {kernel}, its wrapper "
+                        f"{host_us:.1f} us of host time a call; plain {plain_ms:.3f} ms ({plain_launches} launches, "
+                        f"{plain_device_ms} ms on the device); bound {r['bound_ms']:.4f} ms ({nbytes} bytes){share}")
+        pulses[what] = total
+        stamp(card, f"phase 5 {what}: a pulse's {len(kept)} launches {total['ms']:.4f} ms on the device, the "
+                    f"plain programs {total['plain_ms']:.3f} ms ({total['plain_launches']} launches); bound "
+                    f"{total['bound_ms']:.4f} ms")
+        del state, kept
+    return {"name": "shade (miss and closest-hit programs)", "route": "cuda",
+            "source": "rts_tpu_torch/ops/csrc/shade.cu",
+            "replaces": "none: rts_tpu/engine/wavefront.py:_process_miss and _process_hit are plain XLA",
+            "pulse": pulses, "calls": calls}
 
 
 def main() -> int:
@@ -2101,6 +2329,7 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = kernel_calls()
     p1_terrain = phase1_calls("phase 3")
+    shade_terrain = shade_calls("phase 3")
     t_sweeps, t_swept = sweep_counts()
     received = int((out.received >= 0).sum())
     if launches == 0:
@@ -2142,6 +2371,8 @@ def main() -> int:
     stamp(card, f"phase 4 plain-traversal pulse: received ({int((res_p.received >= 0).sum())} "
                 "lanes), path rows and emit identical to the kernel run")
     del again, runs, res_k, res_p, out_k, out_p  # base, batch: phase j
+    # ---- 5. the shading kernel against the plain programs
+    shade_entry = shade_phases(card, dev)
 
     # ---- a. moving scene, segment 1, with the prune (K3)
     (mbase, mbatch, mcfg, mspec), mscene, m_args, m_knobs = segment1(moving_world(PULSES), **MOVING_KNOBS)
@@ -2193,6 +2424,7 @@ def main() -> int:
         k3_launches = kernel_calls("K3")
         m_launches = kernel_calls()
         m_p1 = phase1_calls("phase c")
+        m_shade = shade_calls("phase c")
         k2_launches, m_swept = sweep_counts()
         counts = check_replay_overflow(mout, mcfg)
     m_received = int((mout.received >= 0).sum())
@@ -2233,6 +2465,7 @@ def main() -> int:
     sync()
     k4_launches = kernel_calls("K4")
     d_p1 = phase1_calls("phase d")
+    d_shade = shade_calls("phase d")
     one_g, agg_g = make_pulse_fn(mbase, mcfg, mspec)
     res_g = one_g(*args0)
     out_g = agg_g(*res_g)
@@ -2327,7 +2560,7 @@ def main() -> int:
 
     # ---- i. the terrain CPI with the live pack (K5) and per-candidate windows (K6)
     CT.mt_traverse.resident_overflows = torch.zeros((), dtype=torch.int32, device=dev)
-    mode_runs, mode_p1 = {}, {}
+    mode_runs, mode_p1, mode_shade = {}, {}, {}
     for mode, option in (("K5", dict(resident_cap=RESIDENT_CAP)), ("K6", dict(mt_union=False))):
         t0 = time.perf_counter()
         state = prepare_cpi(terrain_world(PULSES, TRIS), params, preset="production", device=dev,
@@ -2341,6 +2574,7 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         n_mode, n_all = kernel_calls(mode), kernel_calls()
         mode_p1[mode] = phase1_calls(f"phase i {mode}")
+        mode_shade[mode] = shade_calls(f"phase i {mode}")
         if n_mode == 0:
             raise AssertionError(f"the terrain CPI with {option} never launched mode {mode}")
         if not same_result(first, out):
@@ -2388,6 +2622,10 @@ def main() -> int:
                 "moving": m_p1, "moving shade-emit pulse": d_p1, "dielectric": diel["p1"],
                 "config 5": img["p1"], "cli": img["cli_p1"], "split config 5": split["s_p1"],
                 "ray blocks": split["t_p1"], **{f"bench {what}": n for what, n in xy["p1"].items() if n}}
+    shade_paths = {"terrain": shade_terrain, "terrain K5": mode_shade["K5"], "terrain K6": mode_shade["K6"],
+                   "moving": m_shade, "moving shade-emit pulse": d_shade, "dielectric": diel["shade"],
+                   "config 5": img["shade"], "cli": img["cli_shade"], "split config 5": split["s_shade"],
+                   "ray blocks": split["t_shade"], **{f"bench {what}": n for what, n in xy["shade"].items()}}
     kernels = [
         # the terrain segment 1 (phase 2); its launches are those of the
         # terrain, dielectric and config-5 main paths and the CLI's, with
@@ -2413,6 +2651,7 @@ def main() -> int:
         entry(f"mt_traverse K5 (resident live pack, cap {RESIDENT_CAP})", "398", mode_runs["K5"], k5),
         entry("mt_traverse K6 (mt_union=False)", "710", mode_runs["K6"], k6),
         {**p1, "launches": sum(p1_paths.values()), "launches_by_path": p1_paths},
+        {**shade_entry, "launches": sum(shade_paths.values()), "launches_by_path": shade_paths},
     ]
 
     print(json.dumps({"kernels": kernels}))

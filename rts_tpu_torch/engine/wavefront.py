@@ -23,6 +23,13 @@ the atan2 form of the receiver window test.
 
 The JAX package's ``lax.cond`` branches become Python ``if``s on counts
 read back from the device, and its ``fori_loop``s Python loops.
+
+On float32 CUDA state (``shade_on_card``) a segment's miss and closest-hit
+programs are one launch of the hand-written kernel ``ops/csrc/shade.cu``
+(``shade_cuda``), bit-identical to ``_process_miss`` and ``_process_hit``,
+which stay as the CPU, float64 and parity path and as its oracle; in the
+two segments that spawn refracted children the kernel runs the miss
+program and ``_process_hit`` the closest-hit program with the spawn.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from rts_tpu_torch.engine.animate import ClusterScene
 from rts_tpu_torch.engine.fan import fan_tile_perm, generate_fan_c
 from rts_tpu_torch.engine.intersect import closest_hit_bruteforce
 from rts_tpu_torch.engine.types import DeviceScene, RxGeomDevice, TraceConfig
+from rts_tpu_torch.ops import cluster_trace as CT
 from rts_tpu_torch.ops.cluster_trace import closest_hit_clustered
 from rts_tpu_torch.utils.timing import count, profiling, trace_annotation
 
@@ -518,6 +526,158 @@ def _process_miss(state: LaneState, miss_mask, rx: RxGeomDevice, tx_origin, cfg:
     )
 
 
+_SHADE_MAX_RX = 31  # the capture bits are int32, one a receiver
+
+
+class ShadeTables(NamedTuple):
+    """The operands of ``csrc/shade.cu`` that no segment of a trace
+    changes, checked once a trace (``shade_tables``): the normal table
+    ``tab[i * ts + k * cs]`` (k = corner * 3 + component, 9 the target)
+    and how it is read, the per-target tables, the receivers and the
+    transmitter."""
+
+    tab: torch.Tensor
+    ts: int
+    cs: int
+    smooth: bool  # interpolate the three corner normals
+    shade_rows: bool  # a ClusterScene's shade rows: the target in column 9, the normal rotated by its attitude
+    tri_target: torch.Tensor
+    target_refl: torch.Tensor
+    target_vel: torch.Tensor
+    rot: torch.Tensor  # a DeviceScene's target_vel in its place: read only with ``shade_rows``
+    rx: RxGeomDevice
+    tx_origin: torch.Tensor
+
+
+def shade_on_card(x, cfg: TraceConfig) -> bool:
+    """Whether a segment whose lane state ``x`` (a leaf of it) holds is
+    shaded by ``csrc/shade.cu``: float32 on a CUDA device, outside the
+    parity engine's float32 narrowing form (``strict_parity``).  Float64
+    state, CPU tensors and the parity engine run ``_process_miss`` and
+    ``_process_hit``."""
+    return x.device.type == "cuda" and x.dtype == torch.float32 and not cfg.strict_parity
+
+
+def shade_shape(lanes: int, rows: int, num_rx: int, num_tris: int, num_targets: int) -> None:
+    """ValueError for a ``csrc/shade.cu`` call it does not take: no lane,
+    result buffers narrower than the lanes, more receivers than its int32
+    capture bits hold (31), no triangle or no target to shade from.  Any
+    ``tri_seq`` width and path depth is taken."""
+    if lanes < 1:
+        raise ValueError(f"the shading kernel takes at least one lane; got {lanes}")
+    if rows < lanes:
+        raise ValueError(f"the path and RCS buffers ({rows} lanes) are narrower than the {lanes} lanes traced")
+    if not 0 <= num_rx <= _SHADE_MAX_RX:
+        raise ValueError(f"the shading kernel takes at most {_SHADE_MAX_RX} receivers (int32 capture bits); "
+                         f"got {num_rx}")
+    if num_tris < 1 or num_targets < 1:
+        raise ValueError(f"the shading kernel needs a triangle and a target; got {num_tris} triangles, "
+                         f"{num_targets} targets")
+
+
+def shade_tables(scene: ClusterScene | DeviceScene, rx: RxGeomDevice, tx_origin, cfg: TraceConfig) -> ShadeTables:
+    """The scene's, receivers' and transmitter's operands of
+    ``shade_cuda``, contiguous and checked (ValueError otherwise)."""
+    clustered = isinstance(scene, ClusterScene)
+    n_tris, nt, nr = scene.tri_target.shape[0], scene.target_refl.shape[0], rx.num_rx
+    if clustered and cfg.interpolate_smooth:  # a triangle's shade row
+        tab, ts, cs, shape = scene.shade_pack, 10, 1, (n_tris, 10)
+    elif clustered:  # rows 0-2 of the pack: the world-frame geometric normal
+        tab, ts, cs, shape = scene.tri_pack, 1, n_tris, (16, n_tris)
+    elif cfg.interpolate_smooth:
+        tab, ts, cs, shape = scene.tri_corner_normals, 9, 1, (n_tris, 3, 3)
+    else:
+        tab, ts, cs, shape = scene.tri_n, 3, 1, (n_tris, 3)
+    rot = scene.rot if clustered else scene.target_vel
+    tab, tri_target, refl_c, vel, rot, tx_origin = (x.contiguous() for x in (
+        tab, scene.tri_target, scene.target_refl, scene.target_vel, rot, tx_origin))
+    rx = RxGeomDevice(*(x.contiguous() for x in rx))
+    dev, f32 = tab.device, torch.float32
+    for name, x, dt, shp in (
+        ("normal table", tab, f32, shape), ("tri_target", tri_target, torch.int32, (n_tris,)),
+        ("target_refl", refl_c, f32, (nt,)), ("target_vel", vel, f32, (nt, 3)),
+        ("rot", rot, f32, (nt, 3, 3) if clustered else (nt, 3)),
+        ("rx.centre", rx.centre, f32, (nr, 3)), ("rx.radius", rx.radius, f32, (nr,)),
+        ("rx.min_theta", rx.min_theta, f32, (nr,)), ("rx.max_theta", rx.max_theta, f32, (nr,)),
+        ("rx.min_phi", rx.min_phi, f32, (nr,)), ("rx.max_phi", rx.max_phi, f32, (nr,)),
+        ("tx_origin", tx_origin, f32, (3,)),
+    ):
+        CT._check(name, x, dt, shp, dev)
+    smooth = cfg.interpolate_smooth
+    return ShadeTables(tab, ts, cs, smooth, clustered and smooth, tri_target, refl_c, vel, rot, rx, tx_origin)
+
+
+def shade_cuda(state: LaneState, bufs: TraceBuffers, hit, scene: ClusterScene | DeviceScene,
+               rx: RxGeomDevice, tx_origin, cfg: TraceConfig, miss_only: bool = False,
+               tables: ShadeTables | None = None):
+    """One segment's ``_process_miss`` then, unless ``miss_only``, its
+    ``_process_hit`` without the refraction spawn, as one launch of
+    ``csrc/shade.cu``, bit-identical to them on float32 CUDA state.
+    The kernel updates ``state`` and ``bufs`` in place (each lane its
+    own) and returns them; it adds 1 to the counter ``shade.calls``.
+    ``miss_only`` is the spawn segments' half: ``_process_hit`` with the
+    spawn follows it there.  ``tables`` is ``shade_tables(scene, rx,
+    tx_origin, cfg)``, made here when not given (a trace makes it once).
+    A call outside the kernel's limits raises ValueError (``shade_shape``)
+    before anything is checked or built."""
+    lanes = state.origin.shape[1]
+    path, rcs = bufs
+    rows, n_tris, nt = path.shape[-1], scene.tri_target.shape[0], scene.target_refl.shape[0]
+    shade_shape(lanes, rows, rx.num_rx, n_tris, nt)
+    tb = tables or shade_tables(scene, rx, tx_origin, cfg)
+    tab, ts, cs, by_lane = tb.tab, tb.ts, tb.cs, tb.shade_rows and hit.shade is not None
+    if by_lane:  # the traversal's emitted winner rows [10, lanes], a view
+        tab, ts, cs = hit.shade, hit.shade.stride(1), hit.shade.stride(0)
+    dev = state.origin.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    if tb.tab.device != dev:
+        raise ValueError(f"the shading kernel's tables are on {tb.tab.device}, the lanes on {dev}")
+    width, depth = state.tri_seq.shape[0], path.shape[0]
+    written = [x.data_ptr() for x in (
+        state.origin, state.direction, state.seg_dir, state.tmin, state.ray_length, state.power, state.doppler,
+        state.refr_prev, state.refl_depth, state.received, state.first_hit, state.end, state.active,
+        state.tri_seq, state.cap_bits, state.cap_root0_bits, path, rcs) if x.numel()]
+    if len(set(written)) != len(written):
+        raise ValueError("the shading kernel writes the lane state in place: its fields must not share memory")
+    if by_lane and (tab.device != dev or tab.dtype != f32 or tab.shape != (10, lanes)):
+        raise ValueError(f"hit.shade must be float32 [10, {lanes}] on {dev}; got {tab.dtype} "
+                         f"{tuple(tab.shape)} on {tab.device}")
+    for name, x, dt, shp in (
+        ("origin", state.origin, f32, (3, lanes)), ("direction", state.direction, f32, (3, lanes)),
+        ("seg_dir", state.seg_dir, f32, (3, lanes)), ("tmin", state.tmin, f32, (lanes,)),
+        ("ray_length", state.ray_length, f32, (lanes,)), ("power", state.power, f32, (lanes,)),
+        ("doppler", state.doppler, f32, (lanes,)), ("refr_prev", state.refr_prev, f32, (lanes,)),
+        ("refr_cur", state.refr_cur, f32, (lanes,)), ("refl_depth", state.refl_depth, i32, (lanes,)),
+        ("refr_depth", state.refr_depth, i32, (lanes,)), ("received", state.received, i32, (lanes,)),
+        ("first_hit", state.first_hit, f32, (3, lanes)), ("end", state.end, b8, (lanes,)),
+        ("active", state.active, b8, (lanes,)), ("tri_seq", state.tri_seq, i32, (width, lanes)),
+        ("cap_bits", state.cap_bits, i32, (lanes,)), ("cap_root0_bits", state.cap_root0_bits, i32, (lanes,)),
+        ("hit.t", hit.t, f32, (lanes,)), ("hit.tri", hit.tri, i32, (lanes,)),
+        ("hit.beta", hit.beta, f32, (lanes,)), ("hit.gamma", hit.gamma, f32, (lanes,)),
+        ("hit.found", hit.found, b8, (lanes,)), ("path", path, i32, (depth, rows)),
+        ("rcs", rcs, f32, (2, depth, rows)),
+    ):
+        CT._check(name, x, dt, shp, dev)
+    lib = CT._load()
+    with torch.cuda.device(dev):
+        err = lib.shade_launch(
+            *(x.data_ptr() for x in (
+                state.origin, state.direction, state.seg_dir, state.tmin, state.ray_length, state.power,
+                state.doppler, state.refr_prev, state.refr_cur, state.refl_depth, state.refr_depth,
+                state.received, state.first_hit, state.end, state.active, state.tri_seq, state.cap_bits,
+                state.cap_root0_bits, hit.t, hit.tri, hit.beta, hit.gamma, hit.found, tab, tb.tri_target,
+                tb.rot, tb.target_refl, tb.target_vel, *tb.rx, tb.tx_origin, path, rcs)),
+            lanes, rows, width, depth, tb.rx.num_rx, n_tris, nt, cfg.max_refl_dev, cfg.max_refr_dev, ts, cs,
+            int(miss_only), int(cfg.rcs_angles), int(tb.smooth), int(tb.shade_rows), int(by_lane),
+            SCENE_EPS, SCENE_EPS_R, EARTH_RADIUS**2, 4.0 * PI, (4.0 * PI) * (4.0 * PI),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"shade kernel launch failed: cudaError {err}")
+    count("shade.calls", 1)
+    return state, bufs
+
+
 def _lane_sort_key(state: LaneState):
     """Sort key of the lane compaction (``TraceConfig.compact_lanes``), in
     int64 holding the JAX package's uint32 key: bit 31 = dead; below it
@@ -650,7 +810,9 @@ def trace_fan(
     live lanes and live full ray tiles entering it (the spawn segment's
     from the fan, a narrow segment's from the counts it reads on the host,
     the others' on the device while a profiler records), and
-    ``segment.narrow`` the segments traced as their live tiles only.
+    ``segment.narrow`` the segments traced as their live tiles only, and
+    ``shade.calls`` the shading kernel's launches (one a segment traced on
+    float32 CUDA state).
     With refraction on, the spawn is an ``rts.refract`` span, and while a
     profiler records the device counts ``refract.spawned.trapped``,
     ``refract.spawned.exiting`` (children born, by slot), ``refract.tir``
@@ -708,13 +870,20 @@ def trace_fan(
                 scene.tri_n, scene.tri_c1, scene.tri_c0, scene.tri_np0, tri_chunk=cfg.tri_chunk,
             )
 
+    on_card = shade_on_card(state.origin, cfg)
+    tables = shade_tables(scene, rx, tx_origin, cfg) if on_card else None
+
     def body(state, bufs, spawn):
         # dead lanes trace with a zero direction: the slab tests drop them
         live_dir = torch.where(state.active, state.direction, 0.0)
         hit = hit_fn(state.origin, live_dir, state.tmin)
+        if on_card and not (spawn and cfg.refraction_on):
+            return shade_cuda(state, bufs, hit, scene, rx, tx_origin, cfg, tables=tables)
         hit_mask = state.active & hit.found
-        miss_mask = state.active & ~hit.found
-        state = _process_miss(state, miss_mask, rx, tx_origin, cfg)
+        if on_card:  # a spawn segment: the kernel's miss half, then the spawning hit
+            state, _ = shade_cuda(state, bufs, hit, scene, rx, tx_origin, cfg, miss_only=True, tables=tables)
+        else:
+            state = _process_miss(state, state.active & ~hit.found, rx, tx_origin, cfg)
         return _process_hit(state, bufs, hit, hit_mask, scene, tx_origin, cfg, n3, spawn=spawn)
 
     # Children spawn only in the first segments (a primary's first hit is

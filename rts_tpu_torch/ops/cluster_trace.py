@@ -601,7 +601,8 @@ def mt_traverse_reference(inp: TraversalInputs, shape: TraversalShape, tile_chun
 # ---------------------------------------------------------------------------
 # CUDA kernel binding
 
-_CSRCS = tuple(Path(__file__).resolve().parent / "csrc" / f for f in ("mt_traverse.cu", "phase1.cu"))
+_CSRCS = tuple(Path(__file__).resolve().parent / "csrc" / f
+               for f in ("mt_traverse.cu", "phase1.cu", "shade.cu"))
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rts_tpu_torch"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -620,10 +621,12 @@ def _nvcc() -> str:
 
 
 def build_kernel(verbose: bool = False) -> Path:
-    """Compile ``csrc/mt_traverse.cu`` and ``csrc/phase1.cu`` for sm_90a
-    into one library in ``build/rts_tpu_torch`` (once per hash of the
-    sources and flags) and return its path.  ``verbose`` adds ``-Xptxas
-    -v`` and prints the compiler's report."""
+    """Compile ``csrc/mt_traverse.cu``, ``csrc/phase1.cu`` and
+    ``csrc/shade.cu`` (the bounce loop's shading,
+    ``engine.wavefront.shade_cuda``) for sm_90a into one library in
+    ``build/rts_tpu_torch`` (once per hash of the sources and flags) and
+    return its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report."""
     src = b"".join(p.name.encode() + p.read_bytes() for p in _CSRCS)
     tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _BUILD_DIR / f"librts_kernels_{tag}.so"
@@ -659,6 +662,9 @@ def _load():
         lib.mt_traverse_sweep_words.restype = ctypes.c_int
         fn = lib.phase1_launch
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.shade_launch
+        fn.argtypes = [ctypes.c_void_p] * 37 + [ctypes.c_int] * 16 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _Kernel.lib = lib
     return _Kernel.lib

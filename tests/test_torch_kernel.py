@@ -5,7 +5,10 @@ sub-blocks onto the kernel's warps and blocks, and on exact ties: in the
 candidate windows and across clusters of the sweep's visit order.  Phase
 1's kernel (``csrc/phase1.cu``) against ``_tile_candidates`` on the CPU,
 element for element, at the shapes of the benchmark's cells and the bench's
-and at the kernel's edges, and through ``closest_hit_clustered``.
+and at the kernel's edges, and through ``closest_hit_clustered``.  The
+bounce loop's shading kernel (``csrc/shade.cu``) against ``_process_miss``
+and ``_process_hit`` on the card, on random segments and on every segment
+of CPIs of the benchmark's configurations (``benchmark/configs``).
 
 Marked ``gpu``: skips where there is no CUDA card (the plain version's tie
 rule is also checked on the CPU, unmarked).  This file imports
@@ -18,11 +21,14 @@ round every product and use IEEE division, so t/beta/gamma must be
 bit-equal, not merely close.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from rts_tpu_torch.accel import cluster_reorder
+from rts_tpu_torch.engine import wavefront as W
 from rts_tpu_torch.engine.animate import animate_packed, scene_base
 from rts_tpu_torch.geometry import rect_mesh, sphere_mesh
 from rts_tpu_torch.geometry.scene import compile_scene
@@ -585,3 +591,268 @@ def test_cuda_phase1_closest_hit_matches_plain_phase1(cuda_device, knobs, monkey
     for name in ("tri", "found", "t"):
         a, b = getattr(got, name), getattr(ref, name)
         assert torch.equal(a, b), (knobs, name, (a != b).sum().item())
+
+
+# ---------------------------------------------------------------------------
+# The bounce loop's shading: csrc/shade.cu (engine.wavefront.shade_cuda)
+# against _process_miss and _process_hit on the same card, on every
+# LaneState field and the path and RCS buffers, bit for bit (float32
+# compared as its bits, so that NaN and -0.0 count).
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _plain_segment(state, bufs, hit, scene, rx, tx_origin, cfg, miss_only=False):
+    """One shade_cuda call's plain version, on copies of its operands:
+    _process_miss, then unless ``miss_only`` _process_hit without the spawn."""
+    state = W.LaneState(*(a.clone() for a in state))
+    bufs = W.TraceBuffers(*(b.clone() for b in bufs))
+    hit_mask = state.active & hit.found
+    state = W._process_miss(state, state.active & ~hit.found, rx, tx_origin, cfg)
+    if miss_only:
+        return state, bufs
+    return W._process_hit(state, bufs, hit, hit_mask, scene, tx_origin, cfg, state.origin.shape[1], spawn=False)
+
+
+def _assert_segment_equal(got, ref, what):
+    names = (*W.LaneState._fields, *W.TraceBuffers._fields)
+    for name, a, b in zip(names, (*got[0], *got[1]), (*ref[0], *ref[1])):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, name)
+        differ = int((_bits(a) != _bits(b)).sum())
+        assert differ == 0, (what, name, f"{differ} of {b.numel()} differ")
+
+
+class _HeldToPlain:
+    """Stands in for wavefront.shade_cuda: each call runs ``kernel`` (the
+    real one) and holds it to _plain_segment on copies of the operands;
+    ``calls`` keeps each call's (lanes, miss_only)."""
+
+    def __init__(self, monkeypatch, kernel=None):
+        self.kernel = kernel or W.shade_cuda
+        self.calls = []
+        monkeypatch.setattr(W, "shade_cuda", self)
+
+    def __call__(self, state, bufs, hit, scene, rx, tx_origin, cfg, miss_only=False, tables=None):
+        ref = _plain_segment(state, bufs, hit, scene, rx, tx_origin, cfg, miss_only)
+        got = self.kernel(state, bufs, hit, scene, rx, tx_origin, cfg, miss_only, tables)
+        _assert_segment_equal(got, ref, (len(self.calls), miss_only))
+        self.calls.append((state.origin.shape[1], miss_only))
+        return got
+
+
+def _shade_calls() -> int:
+    return timing.counters().get("shade.calls", 0)
+
+
+# the benchmark's configurations (benchmark/configs) at a fan of n^3 rays:
+# (configuration, n, pulses, TraceConfig changes)
+_SHADE_CELLS = {
+    "terrain_cell": ("terrain-1M", 63, 2, {}),
+    "split_shape": ("imaging-1M", 31, 2, {}),
+    "dielectric_cell": ("dielectric-1M", 63, 1, {}),
+    "rcs_angles_flat_normals": ("terrain-1M", 31, 1, dict(rcs_angles=True, interpolate_smooth=False)),
+    "rcs_angles_shade_emit": ("dielectric-1M", 31, 1, dict(rcs_angles=True, shade_emit=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_SHADE_CELLS))
+def test_cuda_shade_matches_plain_in_a_cpi(cuda_device, case, monkeypatch):
+    """Every segment of a CPI of the benchmark's configurations: the kernel
+    equals the plain programs on each one's operands (the terrain's narrow
+    segment on its gathered rows; the dielectric's two spawn segments in
+    their miss half, with its two receivers' windows wrapped at both
+    poles); one shade.calls a launch, one launch a traced segment."""
+    import dataclasses
+
+    from benchmark import adapter
+    from rts_tpu_torch.engine.cpi import trace_cpi
+
+    config, n, pulses, change = _SHADE_CELLS[case]
+    traffic = {**adapter.load("traffic", "fan63"), "num_rays": n, "pulses": pulses}
+    base, batch, cfg, spec = adapter.prepare(adapter.load("configs", config), traffic, 1900000003, cuda_device)
+    cfg = dataclasses.replace(cfg, **change)
+    held = _HeldToPlain(monkeypatch)
+    calls, traversals, narrow = _shade_calls(), _calls(), timing.counters().get("segment.narrow", 0)
+    trace_cpi(base, batch, cfg, spec)
+    torch.cuda.synchronize()
+    assert _shade_calls() - calls == len(held.calls) == _calls() - traversals
+    spawn_halves = sum(m for _, m in held.calls)
+    assert spawn_halves == (2 * pulses if cfg.refraction_on else 0)
+    assert len(held.calls) >= pulses * (cfg.num_segments - 1)
+    lanes = n**3 * (3 if cfg.refraction_on else 1)
+    if case == "terrain_cell":
+        assert timing.counters().get("segment.narrow", 0) > narrow
+        assert min(l for l, _ in held.calls) < lanes  # a narrow segment's gathered rows
+    else:
+        assert max(l for l, _ in held.calls) == lanes
+    if config == "dielectric-1M":  # one receiver wraps below the south pole, the other above the north
+        geo = batch.rx_geom
+        assert bool((geo.min_phi < -math.pi / 2).any()) and bool((geo.max_phi > math.pi / 2).any())
+
+
+def _slab_scene(device, cs=128):
+    """A dielectric slab and a sphere, Morton-clustered and padded to
+    ``cs``, with two receivers whose windows wrap at the poles: one below
+    the slab looking down, one beside it looking up."""
+    from rts_tpu_torch.engine.types import RxGeomDevice, scene_to_device
+    from rts_tpu_torch.physics import rx_sphere_geometry
+
+    mesh, _ = sphere_mesh(2, 40.0)
+    slab = rect_mesh(10.0, 300.0, 300.0).translated([500.0, 0.0, 0.0])
+    scene = compile_scene([slab, mesh.translated([700.0, 150.0, 0.0])], [0.5, 0.9], [1.5, 1.0],
+                          [np.array([0.0, 20.0, 0.0]), np.array([-30.0, 0.0, 5.0])])
+    ds = scene_to_device(cluster_reorder(scene, cluster_size=cs), torch.float32, device)
+    geo = rx_sphere_geometry(rx_pos=np.array([[0.0, 0.0, 0.0], [900.0, 0.0, -50.0]]), rx_azimuth=np.zeros(2),
+                             rx_elevation=np.array([-1.4, 1.4]), sphere_radius=np.array([30.0, 60.0]),
+                             theta_span=np.array([1.5, 1.5]), phi_span=np.array([1.2, 1.2]))
+    return ds, RxGeomDevice.from_host(geo, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accel", ["brute", "cluster"])
+@pytest.mark.parametrize("smooth", [True, False], ids=["smooth", "flat"])
+def test_cuda_shade_matches_plain_device_scene(cuda_device, accel, smooth, monkeypatch):
+    """A float32 DeviceScene (world-frame normals, no attitude table),
+    traced by brute force and clustered, with refraction and two
+    receivers: every segment equal to the plain programs."""
+    from rts_tpu_torch.engine.types import TraceConfig
+
+    ds, rx = _slab_scene(cuda_device)
+    assert bool((rx.min_phi < -math.pi / 2).any()) and bool((rx.max_phi > math.pi / 2).any())
+    cfg = TraceConfig(num_rays=15, max_refl_dev=3, max_refr_dev=2, interpolate_smooth=smooth, accel=accel,
+                      cluster_size=128, ray_tile=128, sub_tiles=4, candidates=32, mt_group=4, tri_chunk=256)
+    held = _HeldToPlain(monkeypatch)
+    calls = _shade_calls()
+    W.trace_pulse(ds, rx, [0.0, 0.0, 0.0], [0.0, 0.0], [0.3, 0.3, 0.0], cfg)
+    torch.cuda.synchronize()
+    assert _shade_calls() - calls == len(held.calls) == cfg.num_segments
+    assert [m for _, m in held.calls] == [True, True] + [False] * (cfg.num_segments - 2)
+
+
+def _random_segment(device, cfg, scene_kind, num_rx, rows_pad=0, seed=5):
+    """A segment's operands drawn at random: lanes (not a whole number of
+    blocks) with NaN, infinite and zero directions, dead and ended lanes,
+    every depth, garbage triangle ids and barycentrics where nothing was
+    found; lanes aimed at the receivers (spheres whose windows wrap at the
+    poles), from inside the Earth sphere so that the rest of the misses end
+    there.  Returns (state, bufs, hit, scene, rx, tx_origin)."""
+    from rts_tpu_torch.engine.intersect import HitResult
+    from rts_tpu_torch.engine.types import RxGeomDevice, scene_to_device
+
+    rng = np.random.default_rng(seed)
+    l = 3 * 256 + 37
+    if scene_kind.startswith("cluster"):
+        mesh, _ = sphere_mesh(3, 50.0)
+        plate = rect_mesh(2.0, 150.0, 150.0).translated([300.0, 100.0, 0.0])
+        scene = compile_scene([mesh.translated([900.0, 0.0, 0.0]), plate], [0.9, 0.7], [1.0, 1.5])
+        base = scene_base(cluster_reorder(scene, cluster_size=CS), CS, device=device)
+        q, _ = np.linalg.qr(rng.normal(size=(2, 3, 3)))
+        scene = animate_packed(base, torch.as_tensor(q, dtype=torch.float32, device=device),
+                               torch.as_tensor(rng.normal(size=(2, 3)) * 10, dtype=torch.float32, device=device),
+                               torch.as_tensor(rng.normal(size=(2, 3)) * 30, dtype=torch.float32, device=device))
+    else:
+        mesh, _ = sphere_mesh(2, 50.0)
+        scene = scene_to_device(compile_scene([mesh, rect_mesh(2.0, 150.0, 150.0)], [0.9, -0.7], [1.0, 1.5],
+                                              [np.array([1.0, -2.0, 3.0]), np.array([0.0, 5.0, 0.0])]),
+                                torch.float32, device)
+    n_tris = scene.tri_target.shape[0]
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    i = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=device)
+    centres = np.array([[0.0, 0.0, 300.0], [0.0, 0.0, -300.0]])[:num_rx]
+    # windows the short way round: theta through 0 and through pi
+    rx = RxGeomDevice(f(centres), f([60.0, 80.0][:num_rx]), f([-1.5, 1.6][:num_rx]), f([1.5, -1.6][:num_rx]),
+                      f([-math.pi / 2 - 0.7, -0.2][:num_rx]), f([0.3, math.pi / 2 + 0.7][:num_rx]))
+    o = rng.uniform(-500.0, 500.0, (3, l))
+    d = rng.normal(size=(3, l))
+    if num_rx:  # half the lanes aimed into a receiver's sphere
+        k = rng.integers(0, num_rx, l // 2)
+        d[:, : l // 2] = (centres[k] + rng.uniform(-40.0, 40.0, (l // 2, 3))).T - o[:, : l // 2]
+    seg_dir = d / np.linalg.norm(d, axis=0)
+    d[:, -12:-8] = np.nan
+    d[0, -8:-4] = np.inf
+    d[:, -4:] = 0.0
+    refl = rng.integers(0, cfg.max_refl_dev + 1, l)
+    refr = rng.integers(0, cfg.max_refr_dev + 1, l)
+    refl[: l // 4], refr[: l // 4] = 0, 0  # direct legs and first hits
+    width = cfg.tri_seq_width
+    ray_length = rng.uniform(0.0, 1000.0, l)
+    ray_length[::7] = 0.0
+    doppler = rng.normal(size=l)
+    doppler[::11] = -0.0
+    state = W.LaneState(
+        origin=f(o), direction=f(d), seg_dir=f(seg_dir), tmin=f(np.full(l, 0.005)),
+        ray_length=f(ray_length), power=f(rng.uniform(1e-9, 1e-3, l)), doppler=f(doppler),
+        refr_prev=f(rng.choice([1.0, 1.5], l)), refr_cur=f(rng.choice([1.0, 1.5], l)),
+        refl_depth=i(refl), refr_depth=i(refr), slot_base=i(np.zeros(l)), received=i(rng.integers(-1, 2, l)),
+        first_hit=f(rng.normal(size=(3, l))), end=b(rng.random(l) < 0.15), active=b(rng.random(l) < 0.85),
+        born=b(np.ones(l)), tri_seq=i(rng.integers(-1, n_tris, (width, l))), cap_bits=i(rng.integers(0, 4, l)),
+        cap_root0_bits=i(rng.integers(0, 4, l)),
+    )
+    found = rng.random(l) < 0.5
+    tri = np.where(found, rng.integers(0, n_tris, l), rng.choice([-1, 0, n_tris + 5], l))
+    beta = rng.uniform(0.0, 0.5, l)
+    gamma = rng.uniform(0.0, 0.5, l)
+    beta[~found & (rng.random(l) < 0.3)] = np.nan
+    shade = None
+    if scene_kind == "cluster_emit":  # the traversal's rows: [10, lanes] of a wider buffer, zero where none won
+        rows10 = torch.zeros((10, l + 64), dtype=torch.float32, device=device)
+        rows10[:, :l] = torch.where(b(found)[None], scene.shade_pack[i(np.clip(tri, 0, n_tris - 1)).long()].T, 0.0)
+        shade = rows10[:, :l]
+    hit = HitResult(t=f(np.where(found, rng.uniform(0.1, 800.0, l), np.inf)), tri=i(tri), beta=f(beta),
+                    gamma=f(gamma), found=b(found), shade=shade)
+    rows = l + rows_pad
+    bufs = W.TraceBuffers(path=i(rng.integers(-1, 2, (cfg.depth_total, rows))),
+                          rcs=f(rng.normal(size=(2, cfg.depth_total, rows))))
+    return state, bufs, hit, scene, rx, f([10.0, -20.0, 5.0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refraction", [False, True], ids=["reflect", "refract"])
+@pytest.mark.parametrize("rcs_angles", [True, False], ids=["rcs", "no_rcs"])
+@pytest.mark.parametrize("scene_kind", ["cluster_gather", "cluster_emit", "cluster_flat", "device_smooth",
+                                        "device_flat"])
+def test_cuda_shade_matches_plain_random_segment(cuda_device, scene_kind, rcs_angles, refraction):
+    """One segment of random operands: every LaneState field and both
+    buffers (wider than the lanes) equal the plain programs', in each
+    normal source (the shade_pack gather, the emitted rows, the flat pack
+    normal, a DeviceScene's corner and flat normals); captures by both
+    receivers, direct and indirect, and Earth terminations among them."""
+    from rts_tpu_torch.engine.types import TraceConfig
+
+    cfg = TraceConfig(num_rays=9, max_refl_dev=3, max_refr_dev=2 if refraction else 0, accel="cluster",
+                      interpolate_smooth=not scene_kind.endswith("flat"), rcs_angles=rcs_angles)
+    state, bufs, hit, scene, rx, tx = _random_segment(cuda_device, cfg, scene_kind, 2, rows_pad=29)
+    before = W.LaneState(*(a.clone() for a in state))
+    ref = _plain_segment(state, bufs, hit, scene, rx, tx, cfg)
+    calls = _shade_calls()
+    got = W.shade_cuda(state, bufs, hit, scene, rx, tx, cfg)
+    torch.cuda.synchronize()
+    assert _shade_calls() == calls + 1
+    _assert_segment_equal(got, ref, scene_kind)
+    s = ref[0]
+    miss = before.active & ~hit.found & ~before.end
+    captured = miss & (s.power != before.power)
+    direct = (before.refl_depth == 0) & (before.refr_depth == 0)
+    for r in range(2):
+        assert int((captured & (s.received == r)).sum()) > 3, r
+    assert int((captured & direct).sum()) > 3 and int((captured & ~direct).sum()) > 3
+    assert int((miss & ~captured & s.end).sum()) > 20  # the Earth sphere's
+    assert int((before.active & hit.found & (s.refl_depth > before.refl_depth)).sum()) > 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_rx", [0, 1, 2])
+@pytest.mark.parametrize("miss_only", [True, False], ids=["miss_half", "whole"])
+def test_cuda_shade_matches_plain_receivers(cuda_device, num_rx, miss_only):
+    """Zero, one and two receivers, the spawn segments' miss half and the
+    whole segment, buffers as wide as the lanes (a narrow segment's)."""
+    from rts_tpu_torch.engine.types import TraceConfig
+
+    cfg = TraceConfig(num_rays=9, max_refl_dev=3, max_refr_dev=2, accel="cluster")
+    state, bufs, hit, scene, rx, tx = _random_segment(cuda_device, cfg, "cluster_gather", num_rx, seed=6)
+    ref = _plain_segment(state, bufs, hit, scene, rx, tx, cfg, miss_only)
+    _assert_segment_equal(W.shade_cuda(state, bufs, hit, scene, rx, tx, cfg, miss_only), ref, (num_rx, miss_only))
